@@ -1,0 +1,302 @@
+"""Synchronous FL round scheduler with mid-round migration — the FedFly
+protocol of Fig. 1/Fig. 2 on the card (``repro.core.scheduler``'s
+counterpart):
+
+  Step 1    central server broadcasts global params to edges/devices
+  Step 2-3  each device trains one local epoch through its edge server
+            (split forward/backward, ``repro_torch.core.split``)
+  Step 4-5  central server FedAvg-aggregates the merged full models
+            (one ``fedavg_agg`` kernel launch per round barrier)
+  Step 6-9  if a device moves mid-epoch: checkpoint → transfer → resume
+            at the destination edge server (mode="fedfly"), or restart
+            the local epoch from batch 0 (mode="splitfed", the paper's
+            baseline).
+
+Two clocks per round and client: ``sim_s``, the simulated testbed clock
+(hardware profiles + link model, the paper's Fig. 3 quantity), and
+``wall_s``, the real wall clock of the executed steps. The round time is
+the max over clients (synchronous FL).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.core import fedavg as fedavg_lib
+from repro_torch.core import split as split_lib
+from repro_torch.core.checkpoint import EdgeCheckpoint
+from repro_torch.core.migration import MigrationExecutor, MigrationReport
+from repro_torch.core.mobility import MobilityTrace
+from repro_torch.device import resolve_device
+from repro_torch.models.vgg import params_from_reference, params_to_reference
+from repro_torch.optim.optimizers import Optimizer
+from repro_torch.runtime.checkpoint_manager import BaseVersionRegistry
+from repro_torch.runtime.cluster import (ClientServerState, Device,
+                                         EdgeServer, StageCostModel,
+                                         batch_time_s)
+from repro_torch.runtime.transport import LinkModel
+from repro_torch.tree import tree_leaves, tree_map
+
+Params = Any
+
+
+@dataclass
+class RoundRecord:
+    round_idx: int
+    client_times_sim: Dict[str, float]
+    client_times_wall: Dict[str, float]
+    client_losses: Dict[str, float]
+    migrations: List[MigrationReport] = field(default_factory=list)
+    restarted: List[str] = field(default_factory=list)
+
+    @property
+    def round_time_sim(self) -> float:
+        return max(self.client_times_sim.values())
+
+    @property
+    def round_time_wall(self) -> float:
+        return max(self.client_times_wall.values())
+
+
+@dataclass
+class History:
+    rounds: List[RoundRecord] = field(default_factory=list)
+    eval_acc: Dict[int, float] = field(default_factory=dict)
+
+    def total_time_sim(self) -> float:
+        return sum(r.round_time_sim for r in self.rounds)
+
+
+class FedFlyScheduler:
+    """Drives FL rounds over a simulated cluster of devices + edges, with
+    the training on ``device``."""
+
+    def __init__(self, model, optimizer: Optimizer, devices: List[Device],
+                 edges: List[EdgeServer], *, split_point: int,
+                 lr_schedule: Callable[[int], float],
+                 link: LinkModel = LinkModel(),
+                 migration_codec: str = "raw",
+                 migration_route: str = "direct",
+                 seed: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.optimizer = optimizer
+        self.devices = {d.client_id: d for d in devices}
+        self.edges = {e.edge_id: e for e in edges}
+        self.sp = split_point
+        self.lr_schedule = lr_schedule
+        self.link = link
+        # delta codec: every edge receives the round broadcast, so each
+        # round's server-stage partition is a base version every edge
+        # holds — migrations ship only the drift since round start
+        self.base_registry = (BaseVersionRegistry()
+                              if migration_codec == "delta" else None)
+        self._base_counter = 0
+        self.migrator = MigrationExecutor(link=link, codec=migration_codec,
+                                          base_registry=self.base_registry,
+                                          device=self.device)
+        self.migration_route = migration_route
+        self.cost_model = StageCostModel()
+        self.seed = seed
+        self.global_params: Params = None
+
+    # -- setup ----------------------------------------------------------
+
+    def initialize(self, params: Params = None):
+        """Start from ``params`` — a parameter tree in the *reference*
+        layout (numpy arrays or tensors: conv ``w`` HWIO, fc ``w``
+        ``(in, out)``), so both packages can start from the same weights
+        — or, without it, from the model's init drawn from ``seed``."""
+        if params is None:
+            g = torch.Generator().manual_seed(self.seed)
+            self.global_params = tree_map(lambda t: t.to(self.device),
+                                          self.model.init(g))
+        else:
+            self.global_params = params_from_reference(params, self.device)
+        self._broadcast()
+
+    def _broadcast(self):
+        """Step 1 / Step 6 of Fig. 1: push global params to all stages."""
+        for dev in self.devices.values():
+            d, s = split_lib.partition_params(self.model, self.global_params,
+                                              self.sp)
+            dev.dev_params = d
+            dev.dev_opt = self.optimizer.init(d)
+            edge = self.edges[dev.edge_id]
+            edge.clients[dev.client_id] = ClientServerState(
+                srv_params=s, srv_opt=self.optimizer.init(s))
+        self._publish_base()
+
+    def _publish_base(self):
+        """Register this broadcast's server-stage partition as a synced
+        base version on every edge (they all just received it): the
+        delta migration codec encodes residuals against it. Kept in the
+        reference layout, on the device, as checkpoints ship it."""
+        if self.base_registry is None:
+            return
+        _, s = split_lib.partition_params(self.model, self.global_params,
+                                          self.sp)
+        version = f"v{self._base_counter}"
+        self._base_counter += 1
+        self.base_registry.publish(
+            version, {"server_params": params_to_reference(s)})
+        self.base_registry.mark_all_synced(self.edges.keys(), version)
+
+    def _step(self, dev_p, srv_p, dev_opt, srv_opt, batch, lr):
+        loss, g_dev, g_srv = split_lib.split_value_and_grad(
+            self.model, dev_p, srv_p, batch, self.sp)
+        new_dev, dev_opt = self.optimizer.update(g_dev, dev_opt, dev_p, lr)
+        new_srv, srv_opt = self.optimizer.update(g_srv, srv_opt, srv_p, lr)
+        return new_dev, new_srv, dev_opt, srv_opt, loss, g_srv
+
+    # -- one client's local epoch (with migration) -----------------------
+
+    def _train_client_round(self, round_idx: int, client_id: str,
+                            trace: Optional[MobilityTrace], mode: str,
+                            record: RoundRecord):
+        dev = self.devices[client_id]
+        edge = self.edges[dev.edge_id]
+        state = edge.clients[client_id]
+        batcher = dev.batcher
+        nb = batcher.num_batches
+        lr = self.lr_schedule(round_idx)
+
+        move = trace.move_for(round_idx, client_id) if trace else None
+        move_at = None
+        if move is not None:
+            # clamp inside the epoch: fraction < 1 must still move even
+            # when round(f*nb) lands on nb (e.g. 90% of 4 batches)
+            move_at = min(int(round(move.fraction * nb)), nb - 1)
+
+        t_sim = 0.0
+        t_wall0 = time.perf_counter()
+        moved = False
+        b = state.batch_idx
+        loss_val = state.last_loss
+
+        while b < nb:
+            if move is not None and not moved and b == move_at:
+                t_sim += self._do_move(round_idx, dev, move, mode, record,
+                                       b, loss_val)
+                moved = True
+                edge = self.edges[dev.edge_id]
+                state = edge.clients[client_id]
+                if mode == "splitfed":
+                    b = 0           # restart the local epoch at destination
+                continue
+
+            batch = {k: torch.from_numpy(v).to(self.device) for k, v in
+                     batcher.batch_at(state.epoch, b).items()}
+            (dev.dev_params, state.srv_params, dev.dev_opt, state.srv_opt,
+             loss, g_srv) = self._step(dev.dev_params, state.srv_params,
+                                       dev.dev_opt, state.srv_opt, batch, lr)
+            loss_val = float(loss)
+            state.last_loss = loss_val
+            state.last_grads = g_srv
+            state.batch_idx = b + 1
+
+            dflops, sflops, sbytes = self.cost_model.costs(
+                self.model, dev.dev_params, state.srv_params, batch, self.sp)
+            t_sim += batch_time_s(dev.profile, edge.profile, self.link,
+                                  dflops, sflops, sbytes)
+            b += 1
+
+        state.epoch += 1
+        state.batch_idx = 0
+        record.client_times_sim[client_id] = t_sim
+        record.client_times_wall[client_id] = time.perf_counter() - t_wall0
+        record.client_losses[client_id] = loss_val
+
+    # -- the migration event (Fig. 2 steps 6-9) ---------------------------
+
+    def _do_move(self, round_idx: int, dev: Device, move, mode: str,
+                 record: RoundRecord, batch_idx: int,
+                 loss_val: float) -> float:
+        """Returns the simulated-clock cost of the move."""
+        src = self.edges[move.src_edge]
+        dst = self.edges[move.dst_edge]
+        state = src.clients.pop(dev.client_id)
+        dev.edge_id = dst.edge_id
+
+        if mode == "fedfly":
+            ckpt = EdgeCheckpoint(
+                client_id=dev.client_id, round_idx=round_idx,
+                epoch=state.epoch, batch_idx=batch_idx,
+                split_point=self.sp, server_params=state.srv_params,
+                optimizer_state=state.srv_opt, last_grads=state.last_grads,
+                loss=loss_val, rng_seed=self.seed)
+            restored, report = self.migrator.migrate(
+                ckpt, move.src_edge, move.dst_edge,
+                route=self.migration_route)
+            record.migrations.append(report)
+            dst.clients[dev.client_id] = ClientServerState(
+                srv_params=restored.server_params,
+                srv_opt=restored.optimizer_state,
+                epoch=restored.epoch, batch_idx=restored.batch_idx,
+                last_loss=restored.loss)
+            return report.sim_total_s
+
+        # SplitFed baseline: no migration; the destination edge pulls the
+        # round-start global model from the central server and the device
+        # restarts its local epoch (paper §V-B: "training is restarted").
+        record.restarted.append(dev.client_id)
+        d0, s0 = split_lib.partition_params(self.model, self.global_params,
+                                            self.sp)
+        dev.dev_params, dev.dev_opt = d0, self.optimizer.init(d0)
+        dst.clients[dev.client_id] = ClientServerState(
+            srv_params=s0, srv_opt=self.optimizer.init(s0),
+            epoch=state.epoch, batch_idx=0)
+        # time cost: fetching params from central server over the edge link
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(self.global_params))
+        return self.link.transfer_time(nbytes)
+
+    # -- rounds -----------------------------------------------------------
+
+    def run_round(self, round_idx: int, trace: Optional[MobilityTrace],
+                  mode: str = "fedfly") -> RoundRecord:
+        record = RoundRecord(round_idx, {}, {}, {})
+        for client_id in self.devices:
+            self._train_client_round(round_idx, client_id, trace, mode,
+                                     record)
+        self._aggregate()
+        return record
+
+    def _aggregate(self):
+        """Steps 4-5: FedAvg over merged full models, weighted by client
+        dataset size, then re-broadcast (Step 6)."""
+        trees, weights = [], []
+        for dev in self.devices.values():
+            state = self.edges[dev.edge_id].clients[dev.client_id]
+            trees.append(split_lib.merge_params(self.model, dev.dev_params,
+                                                state.srv_params))
+            weights.append(dev.num_samples)
+        self.global_params = fedavg_lib.fedavg(trees, weights)
+        self._rebroadcast_params_only()
+
+    def _rebroadcast_params_only(self):
+        """Push the new global model; optimizer state persists per client
+        (matching the reference FedFly implementation)."""
+        for dev in self.devices.values():
+            d, s = split_lib.partition_params(self.model, self.global_params,
+                                              self.sp)
+            dev.dev_params = d
+            state = self.edges[dev.edge_id].clients[dev.client_id]
+            state.srv_params = s
+        self._publish_base()
+
+    def run(self, num_rounds: int, trace: Optional[MobilityTrace] = None,
+            mode: str = "fedfly",
+            eval_fn: Optional[Callable[[Params], float]] = None,
+            eval_every: int = 0) -> History:
+        if self.global_params is None:
+            self.initialize()
+        hist = History()
+        for r in range(num_rounds):
+            hist.rounds.append(self.run_round(r, trace, mode))
+            if eval_fn is not None and eval_every and (r + 1) % eval_every == 0:
+                hist.eval_acc[r] = float(eval_fn(self.global_params))
+        return hist
