@@ -11,10 +11,15 @@ Phases (any failure exits non-zero before the result line):
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes and at unaligned ones: the int8 codec bit-equal
      to the plain version and to the numpy oracle, fedavg_agg within
-     rtol=1e-6/atol=1e-7; device times (CUDA-graph replay, CUDA events)
-     beside the plain version, the one-call library equivalent (torch.mv
-     for fedavg_agg) and the bound, plus the host-inclusive time of one
-     wrapper call.
+     rtol=1e-6/atol=1e-7, flash_attention within 1e-5 (fp32) / 2e-2
+     (bf16) at qwen3-0.6b's prefill shapes (S 1024 and 8192, the length
+     the reference sends to its blocked scan), an unaligned non-causal
+     window + softcap case and bf16, wkv6 within 1e-5 at rwkv6-1.6b's
+     (B 4, T 1024 and 1000, H 32); device times (CUDA-graph replay, CUDA
+     events) beside the plain version, the one-call library equivalent
+     (torch.mv for fedavg_agg, scaled_dot_product_attention for
+     flash_attention; none for the codec and wkv6) and the bound, plus
+     the host-inclusive time of one wrapper call.
   4. quickstart: 3 SP2 split steps at batch 100, a raw-codec migration,
      and a resume bit-identical to never moving; one split step on the
      card against the same step on the CPU.
@@ -24,6 +29,18 @@ Phases (any failure exits non-zero before the result line):
   6. profile: one more round with a move, under torch.profiler: the
      card's kernel time and its top kernels; then two rounds without the
      parity mode (timing only).
+  7. serve: launch/serve.py's path at full width under the parity mode,
+     qwen3-0.6b and rwkv6-1.6b, batch 4, prompt 1024, 16 generated
+     tokens, random weights drawn on the card from seed 0; counters reset
+     just before each prefill and read after it (flash_attention 28,
+     wkv6 24), then around the decode (none); the same prefill with every
+     kernel's plain version: last-token logits within atol = rtol = 1e-3
+     and the same argmax.
+  8. session migration: each model's decode session, taken after 8 of
+     the 15 decode steps, moves edge-A -> edge-B: the raw codec resumes
+     with next-token logits bit-identical to not moving; the packed int8
+     codec (delta with no base) records its bytes, ratio to raw,
+     pack/unpack time and its kernel launches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -47,7 +64,9 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 MAIN_N_PACKED = 513024        # SP2 checkpoint's packed delta buffer
+TESTBED_KERNELS = ("quantize_packed", "dequantize_packed", "fedavg_agg")
 VGG5_PARAMS = 188810
 BLOCK = 1024
 
@@ -102,9 +121,9 @@ def call_ms(fn, reps: int = 50, inner: int = 20) -> float:
     return _median_event_ms(run, reps, inner)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOPS_PER_S * 1e3
+    t_f = flops / flops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -252,6 +271,126 @@ def check_fedavg(E: int, N: int, timed: bool):
     return entry
 
 
+# B, H, KV, S, T, hd, causal, window, softcap, dtype; the first is the
+# main path's (one qwen3-0.6b prefill layer at batch 4, prompt 1024)
+FLASH_SHAPES = [
+    (4, 16, 8, 1024, 1024, 128, True, 0, 0.0, "float32"),
+    (1, 16, 8, 8192, 8192, 128, True, 0, 0.0, "float32"),
+    (2, 8, 4, 1000, 777, 64, False, 256, 50.0, "float32"),
+    (4, 16, 8, 1024, 1024, 128, True, 0, 0.0, "bfloat16"),
+]
+# B, T, H: one rwkv6-1.6b prefill layer at batch 4, prompt 1024; unaligned
+WKV6_SHAPES = [(4, 1024, 32), (4, 1000, 32)]
+
+
+def _flash_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the function needs per (batch, head): the keys
+    each row attends (a row with none averages all T keys)."""
+    s = np.arange(S, dtype=np.int64)
+    hi = np.minimum(s if causal else np.full(S, T - 1), T - 1)
+    lo = np.maximum(s - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
+    n = np.maximum(hi - lo + 1, 0)
+    return int(np.where(n > 0, n, T).sum())
+
+
+def _sdpa_ms(q, k, v):
+    """scaled_dot_product_attention (causal, GQA) on the same inputs, the
+    library yardstick; timed with deterministic mode off (it is not on
+    the port's path)."""
+    import torch.nn.functional as F
+    torch.use_deterministic_algorithms(False)
+    try:
+        try:
+            F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+            fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        except TypeError:       # torch < 2.5: no enable_gqa
+            rep = q.shape[1] // k.shape[1]
+            ke, ve = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+            fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, ke, ve, is_causal=True)
+        return device_ms(fn, reps=10, inner=3)
+    finally:
+        torch.use_deterministic_algorithms(True)
+
+
+def check_flash(B, H, KV, S, T, hd, causal, window, softcap, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(S * 7 + T)
+    q = torch.randn((B, H, S, hd), generator=g, device=dev).to(dt)
+    k = torch.randn((B, KV, T, hd), generator=g, device=dev).to(dt)
+    v = torch.randn((B, KV, T, hd), generator=g, device=dev).to(dt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fa.flash_attention_fwd(q, k, v, **kw)
+    want = fa.flash_attention_fwd(q, k, v, use_kernel=False, **kw)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+    del want
+    esize = q.element_size()
+    nbytes = esize * (2 * B * H * S * hd + 2 * B * KV * T * hd)
+    flops = 4 * hd * B * H * _flash_pairs(S, T, causal, window)
+    b = bound(nbytes, flops, BF16_FLOPS_PER_S if dt == torch.bfloat16
+              else FP32_FLOPS_PER_S)
+    big = S >= 4096
+    out = torch.empty_like(q)
+    entry = {"name": "flash_attention", "mode": (
+        f"B{B} H{H} KV{KV} S{S} T{T} hd{hd} {dtype} "
+        f"{'causal' if causal else 'non-causal'} window {window} "
+        f"softcap {softcap:g}"), "n": B * H * S * hd, "passed": ok,
+        "tolerance": tol, "max_abs_err": err, "bytes": nbytes,
+        "flops": flops, "bound_ms": b[0], "bound_by": b[1],
+        "ms": device_ms(lambda: fa.launch_flash_attention(
+            q, k, v, out, **kw), reps=10 if big else 50,
+            inner=3 if big else 20),
+        "plain_ms": device_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, use_kernel=False, **kw), reps=3 if big else 10,
+            inner=1 if big else 3),
+        "wrapper_call_ms": call_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, **kw), reps=10 if big else 50, inner=3 if big else 20),
+        "library_ms": (_sdpa_ms(q, k, v) if causal and not window
+                       and not softcap and S == T else None)}
+    return entry
+
+
+def check_wkv6(B, T, H):
+    from repro_torch.kernels.wkv6 import wkv6 as wk
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(T * 13 + H)
+    shape = (B, T, H, 64)
+    r, k, v = (torch.randn(shape, generator=g, device=dev) * 0.5
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(shape, generator=g, device=dev)) * 0.5 + 0.4
+    u = torch.randn((H, 64), generator=g, device=dev) * 0.1
+    y, s = wk.wkv6(r, k, v, w, u)
+    y_p, s_p = wk.wkv6(r, k, v, w, u, use_kernel=False)
+    err = max(float((y - y_p).abs().max()), float((s - s_p).abs().max()))
+    ok = bool(torch.allclose(y, y_p, atol=1e-5, rtol=1e-5)
+              and torch.allclose(s, s_p, atol=1e-5, rtol=1e-5))
+    nbytes = 4 * (5 * B * T * H * 64 + H * 64 + B * H * 64 * 64)
+    # per token and head, what the function needs: y_j = sum_i r_i S_ij
+    # (2 per entry) + v_j * sum_i r_i u_i k_i (5 per column), and
+    # S = S * w + k v^T (3 per entry)
+    flops = (5 * 64 * 64 + 5 * 64) * B * T * H
+    b = bound(nbytes, flops)
+    yb, sb = torch.empty_like(y), torch.empty_like(s)
+    return {"name": "wkv6", "mode": f"B{B} T{T} H{H} K64 float32",
+            "n": B * T * H * 64, "passed": ok, "tolerance": 1e-5,
+            "max_abs_err": err, "bytes": nbytes, "flops": flops,
+            "bound_ms": b[0], "bound_by": b[1],
+            "ms": device_ms(lambda: wk.launch_wkv6(r, k, v, w, u, None, yb,
+                                                   sb), reps=20, inner=5),
+            "plain_ms": device_ms(lambda: wk.wkv6(r, k, v, w, u,
+                                                  use_kernel=False),
+                                  reps=3, inner=1),
+            "wrapper_call_ms": call_ms(lambda: wk.wkv6(r, k, v, w, u),
+                                       reps=20, inner=5),
+            "library_ms": None}
+
+
 def phase_kernels():
     timed, checks = [], []
     for residual in (False, True):
@@ -259,6 +398,10 @@ def phase_kernels():
         checks += check_codec(1000003, residual, timed=False)
     timed.append(check_fedavg(4, VGG5_PARAMS, timed=True))
     checks.append(check_fedavg(4, 1000003, timed=False))
+    for i, shape in enumerate(FLASH_SHAPES):
+        (timed if i == 0 else checks).append(check_flash(*shape))
+    for i, shape in enumerate(WKV6_SHAPES):
+        (timed if i == 0 else checks).append(check_wkv6(*shape))
     for c in timed + checks:
         emit({"check": c})
     failed = [c for c in timed + checks if not c["passed"]]
@@ -382,7 +525,8 @@ def phase_main_path():
         problems.append(f"quant_error {rep.quant_error}")
     if not all(np.isfinite(losses)):
         problems.append(f"non-finite losses {losses}")
-    if min(launches.values()) < 1 or launches["fedavg_agg"] != 3:
+    if (min(launches[k] for k in TESTBED_KERNELS) < 1
+            or launches["fedavg_agg"] != 3):
         problems.append(f"kernel launches on the main path: {launches}")
     emit({"phase": "main_path", "rounds": [
         {"round": r.round_idx, "sim_s": r.round_time_sim,
@@ -402,29 +546,41 @@ def phase_main_path():
     return launches, sched, wall / len(hist.rounds)
 
 
+def profile_device(fn):
+    """Run ``fn`` once under torch.profiler. Returns (profiled wall ms,
+    the card's summed kernel ms, [(kernel, ms, count)] by device time).
+    The profiler slows the host, so compare the kernel time with an
+    unprofiled wall time of the same work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return wall_ms, sum(r[1] for r in rows), rows
+
+
+def _top(rows, n):
+    return [{"name": k[:90], "ms": t, "count": c} for k, t, c in rows[:n]]
+
+
 def phase_profile(sched, round_wall_s: float):
     """One more round (pi3_1 moving back mid-round) under torch.profiler:
     the card's kernel time against the unprofiled round wall time (the
     profiler slows the host), and the kernels that take the most device
     time. Then two rounds without the parity mode, to see what it costs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.mobility import MobilityTrace, move_at_round
     from repro_torch.device import set_parity_mode
     trace = MobilityTrace(move_at_round("pi3_1", "edge-B", "edge-A", 3, 0.5))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sched.run_round(3, trace, mode="fedfly")
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
-    kernel_ms = sum(r[1] for r in rows) / 1e3
+    prof_wall_ms, kernel_ms, rows = profile_device(
+        lambda: sched.run_round(3, trace, mode="fedfly"))
     wall_ms = 1e3 * round_wall_s        # mean whole-round wall, phase 5
 
     walls = []
@@ -443,9 +599,208 @@ def phase_profile(sched, round_wall_s: float):
           "profiled_round_wall_ms": prof_wall_ms,
           "unprofiled_round_wall_ms": wall_ms,
           "device_busy_share": kernel_ms / wall_ms,
-          "top_device": [{"name": k[:90], "ms": t / 1e3, "count": c}
-                         for k, t, c in rows[:12]],
+          "top_device": _top(rows, 12),
           "round_wall_s_without_parity_mode": walls})
+
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
+SERVE_SPLIT = 8                 # decode steps before the session moves
+SERVE_TOL = 1e-3                # kernel vs plain last-token logits
+
+
+def phase_serve(arch: str, kernel_ms: dict):
+    """launch/serve.py's path at full width: prefill, then greedy decode
+    in two runs with the session snapshot between them (phase 8)."""
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.kernels import native
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.registry import build_model, get_config
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    batch = {"tokens": torch.from_numpy(synthetic_tokens(
+        B, S, cfg.vocab_size, 0)["tokens"]).to(dev)}
+    # warm-up (cuBLAS handles, first-call costs) on a short prompt
+    steps.make_prefill_step(model)({"tokens": batch["tokens"][:, :64]})
+
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = serve.build_cache_from_prefill(model, cfg, batch, S,
+                                                   S + G)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = dict(native.LAUNCHES)
+    prefill_logits = logits
+
+    native.reset_launches()
+    t0 = time.perf_counter()
+    toks_a, logits = serve.generate(model, cache, logits, S, SERVE_SPLIT)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    snapshot = {k: v.clone() for k, v in cache.items()}
+    next_tok = serve.greedy(logits)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks_b, logits = serve.generate(model, cache, logits, S + SERVE_SPLIT,
+                                    G - 1 - SERVE_SPLIT)
+    torch.cuda.synchronize()
+    decode_s += time.perf_counter() - t0
+    decode_launches = dict(native.LAUNCHES)
+    tokens = torch.cat([toks_a, toks_b[:, 1:]], dim=1)
+
+    # one more decode step, and the prefill again, under torch.profiler:
+    # the card's kernel time against the unprofiled wall time
+    _, dec_kernel_ms, dec_rows = profile_device(
+        lambda: steps.make_serve_step(model)(cache, serve.greedy(logits),
+                                             S + G - 1))
+    kernel_prefill = []
+    _, pre_kernel_ms, pre_rows = profile_device(
+        lambda: kernel_prefill.append(steps.make_prefill_step(model)(batch)))
+    kernel_aux = kernel_prefill.pop()[1]
+
+    # the same prefill through every kernel's plain version: the logits,
+    # and every cache entry the prefill collects (the kernels' state and
+    # k/v reach the logits only through the cache)
+    model.use_kernel = False
+    plain_logits, plain_aux = steps.make_prefill_step(model)(batch)
+    model.use_kernel = None
+    err = float((prefill_logits - plain_logits).abs().max())
+    close = bool(torch.allclose(prefill_logits, plain_logits, atol=SERVE_TOL,
+                                rtol=SERVE_TOL))
+    same_argmax = bool(torch.equal(serve.greedy(prefill_logits),
+                                   serve.greedy(plain_logits)))
+    cache_err = {k: float((kernel_aux[k] - plain_aux[k]).abs().max())
+                 for k in plain_aux}
+    cache_close = {k: bool(torch.allclose(kernel_aux[k], plain_aux[k],
+                                          atol=SERVE_TOL, rtol=SERVE_TOL))
+                   for k in plain_aux}
+    del kernel_aux, plain_aux
+
+    name = "flash_attention" if not cfg.rwkv else "wkv6"
+    want = {"flash_attention": 0 if cfg.rwkv else cfg.num_layers,
+            "wkv6": cfg.num_layers if cfg.rwkv else 0}
+    problems = []
+    for k, n in want.items():
+        if prefill_launches[k] != n:
+            problems.append(f"prefill launched {k} {prefill_launches[k]} "
+                            f"times, expected {n}")
+        if decode_launches[k] != 0:
+            problems.append(f"decode launched {k} {decode_launches[k]} times")
+    if not close or not same_argmax:
+        problems.append(f"kernel vs plain prefill logits: max abs err {err}, "
+                        f"same argmax {same_argmax}")
+    if not all(cache_close.values()):
+        problems.append(f"kernel vs plain prefill cache: max abs err "
+                        f"{cache_err}")
+    if not bool(torch.isfinite(logits).all()) or tokens.shape != (B, G):
+        problems.append(f"decode: tokens {tuple(tokens.shape)}, finite "
+                        f"{bool(torch.isfinite(logits).all())}")
+    steps_n = G - 1
+    emit({"phase": "serve", "arch": arch, "params": sum(
+        p.numel() for p in model.parameters()), "init_s": init_s,
+        "batch": B, "prompt": S, "gen": G, "prefill_s": prefill_s,
+        "prefill_tok_per_s": B * S / prefill_s, "decode_s": decode_s,
+        "decode_step_ms": 1e3 * decode_s / steps_n,
+        "decode_tok_per_s": B * steps_n / decode_s,
+        "prefill_launches": prefill_launches,
+        "decode_launches": decode_launches,
+        "kernel_share_of_prefill": (
+            prefill_launches[name] * kernel_ms[name] / 1e3 / prefill_s),
+        "prefill_device_kernel_ms": pre_kernel_ms,
+        "prefill_device_kernels": sum(r[2] for r in pre_rows),
+        "prefill_device_busy_share": pre_kernel_ms / 1e3 / prefill_s,
+        "prefill_top_device": _top(pre_rows, 6),
+        "decode_step_device_kernel_ms": dec_kernel_ms,
+        "decode_step_device_kernels": sum(r[2] for r in dec_rows),
+        "decode_device_busy_share": dec_kernel_ms / (1e3 * decode_s
+                                                     / steps_n),
+        "decode_top_device": _top(dec_rows, 6),
+        "kernel_vs_plain_logits_max_abs_err": err,
+        "tolerance": SERVE_TOL, "same_argmax": same_argmax,
+        "kernel_vs_plain_cache_max_abs_err": cache_err,
+        "tokens_seq0": tokens[0].tolist()})
+    if problems:
+        raise SystemExit(f"serve {arch} failed: " + "; ".join(problems))
+    return model, snapshot, next_tok, prefill_launches
+
+
+def phase_session(arch: str, model, snapshot, next_tok):
+    """Move the decode session taken after SERVE_SPLIT decode steps."""
+    from repro_torch.core.migration import MigrationExecutor
+    from repro_torch.core.serve_migration import ServeSession, migrate_session
+    from repro_torch.kernels import native
+
+    dev = torch.device("cuda")
+    pos = SERVE_PROMPT + SERVE_SPLIT
+    sess = ServeSession(f"{arch}-session", snapshot, position=pos,
+                        tokens_generated=SERVE_SPLIT + 1)
+    raw_nbytes = sum(t.numel() * t.element_size() for t in snapshot.values())
+    restored, rep = migrate_session(sess, MigrationExecutor(device=dev),
+                                    "edge-A", "edge-B")
+    native.reset_launches()
+    q_sess, q_rep = migrate_session(
+        sess, MigrationExecutor(codec="delta", device=dev), "edge-A",
+        "edge-B")
+    torch.cuda.synchronize()
+    q_launches = {k: native.LAUNCHES[k] for k in ("quantize_packed",
+                                                  "dequantize_packed")}
+    l_moved, _ = model.decode_step(restored.cache, next_tok, pos)
+    l_q, _ = model.decode_step(q_sess.cache, next_tok, pos)
+    l_direct, _ = model.decode_step(snapshot, next_tok, pos)
+    same = bool(torch.equal(l_moved, l_direct))
+    emit({"phase": "session", "arch": arch, "position": pos,
+          "cache_bytes": raw_nbytes,
+          "raw": {"nbytes": rep.nbytes, "pack_ms": 1e3 * rep.pack_s,
+                  "unpack_ms": 1e3 * rep.unpack_s,
+                  "sim_transfer_s": rep.sim_transfer_s,
+                  "resume_bit_identical": same},
+          "int8_packed": {"codec": "delta, no base: blockwise int8 on the "
+                                   "card", "nbytes": q_rep.nbytes,
+                          "ratio_to_raw": q_rep.nbytes / rep.nbytes,
+                          "pack_ms": 1e3 * q_rep.pack_s,
+                          "unpack_ms": 1e3 * q_rep.unpack_s,
+                          "sim_transfer_s": q_rep.sim_transfer_s,
+                          "quant_error": q_rep.quant_error,
+                          "launches": q_launches,
+                          "next_logits_max_abs_diff": float(
+                              (l_q - l_direct).abs().max()),
+                          "same_next_token": bool(torch.equal(
+                              l_q.argmax(-1), l_direct.argmax(-1)))}})
+    if (not same or restored.position != pos
+            or min(q_launches.values()) != 1
+            or q_rep.nbytes > 0.3 * rep.nbytes):
+        raise SystemExit(f"session migration {arch} failed: resume "
+                         f"bit-identical {same}, int8 launches {q_launches}, "
+                         f"int8 {q_rep.nbytes} B of raw {rep.nbytes} B")
+
+
+def clocked(seconds: dict, name: str, fn, *args):
+    """Call ``fn(*args)``, adding its wall time to ``seconds[name]``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def phase_serve_and_migrate(kernel_ms: dict, seconds: dict):
+    serve_launches = {}
+    for arch in ("qwen3-0.6b", "rwkv6-1.6b"):
+        model, snapshot, next_tok, launches = clocked(
+            seconds, "7_serve", phase_serve, arch, kernel_ms)
+        clocked(seconds, "8_session", phase_session, arch, model, snapshot,
+              next_tok)
+        for k, n in launches.items():
+            serve_launches[k] = serve_launches.get(k, 0) + n
+        del model, snapshot
+        torch.cuda.empty_cache()
+    return serve_launches
 
 
 SOURCES = {"quantize_packed": ("src/repro_torch/kernels/csrc/int8_codec.cu",
@@ -453,18 +808,33 @@ SOURCES = {"quantize_packed": ("src/repro_torch/kernels/csrc/int8_codec.cu",
            "dequantize_packed": ("src/repro_torch/kernels/csrc/int8_codec.cu",
                                  "src/repro/kernels/int8_codec/int8_codec.py:121"),
            "fedavg_agg": ("src/repro_torch/kernels/csrc/fedavg_agg.cu",
-                          "src/repro/kernels/fedavg_agg/fedavg_agg.py:68")}
+                          "src/repro/kernels/fedavg_agg/fedavg_agg.py:68"),
+           "flash_attention": (
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/flash_attention.py:75"),
+           "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                    "src/repro/kernels/wkv6/wkv6.py:55")}
 
 
 def main() -> int:
-    smi = phase_environment()
-    phase_build()
-    timed = phase_kernels()
-    phase_quickstart()
-    launches, sched, round_wall_s = phase_main_path()
-    phase_profile(sched, round_wall_s)
+    t_start = time.perf_counter()
+    secs: dict = {}
+    smi = clocked(secs, "1_environment", phase_environment)
+    clocked(secs, "2_build", phase_build)
+    checked = clocked(secs, "3_kernels", phase_kernels)
+    clocked(secs, "4_quickstart", phase_quickstart)
+    launches, sched, round_wall_s = clocked(secs, "5_main_path",
+                                          phase_main_path)
+    clocked(secs, "6_profile", phase_profile, sched, round_wall_s)
+    del sched
+    serve_launches = phase_serve_and_migrate(
+        {c["name"]: c["ms"] for c in checked}, secs)
+    emit({"phase": "timing", "seconds": secs,
+          "total_s": time.perf_counter() - t_start})
+    launches.update({k: serve_launches[k] for k in ("flash_attention",
+                                                    "wkv6")})
     kernels = []
-    for c in timed:
+    for c in checked:
         src, repl = SOURCES[c["name"]]
         kernels.append({
             "name": c["name"], "route": "cuda", "source": src,

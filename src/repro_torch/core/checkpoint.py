@@ -5,11 +5,14 @@ gradients, model weights, loss value, optimizer state, plus the round
 number, batch index inside the epoch, split point and RNG seed, so the
 destination resumes *the exact batch*.
 
-``to_tree`` emits the **reference layout** (``repro.core.checkpoint``'s:
-conv ``w`` HWIO, fc ``w`` ``(in, out)``, for the params, the SGD ``mu``
-and ``last_grads``), so a container packed by either package unpacks in
-the other; ``from_tree`` converts back to the port's layout on the
-device. The tensors stay on their device until the serializer ships them.
+The checkpoint carries its trees as it is given them, and the caller
+hands them over in the **reference layout** (``repro.core.checkpoint``'s),
+so a container packed by either package unpacks in the other. The VGG-5
+scheduler converts its stage with ``models.vgg.params_to_reference``
+before the move and back with ``params_from_reference`` after it; a
+decode session (``core/serve_migration.py``) is in that layout already.
+The tensors stay on their device until the serializer ships them, and
+``unpack`` puts every leaf on the receiving device.
 """
 from __future__ import annotations
 
@@ -19,7 +22,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.vgg import params_from_reference, params_to_reference
 from repro_torch.runtime import serialization
 
 Params = Any
@@ -63,30 +65,25 @@ class EdgeCheckpoint:
         }
         tree: Dict[str, Any] = {
             "scalars": scalars,
-            "server_params": params_to_reference(self.server_params),
-            "optimizer_state": params_to_reference(self.optimizer_state),
+            "server_params": self.server_params,
+            "optimizer_state": self.optimizer_state,
         }
         if self.last_grads is not None:
-            tree["last_grads"] = params_to_reference(self.last_grads)
+            tree["last_grads"] = self.last_grads
         return tree
 
     @classmethod
-    def from_tree(cls, tree: Dict[str, Any], device="cuda"
-                  ) -> "EdgeCheckpoint":
+    def from_tree(cls, tree: Dict[str, Any]) -> "EdgeCheckpoint":
         s = tree["scalars"]
-        grads = tree.get("last_grads")
         return cls(
             client_id=_as_bytes(s["client_id"]).rstrip(b"\0").decode(),
             round_idx=int(s["round_idx"]),
             epoch=int(s["epoch"]),
             batch_idx=int(s["batch_idx"]),
             split_point=int(s["split_point"]),
-            server_params=params_from_reference(tree["server_params"],
-                                                device),
-            optimizer_state=params_from_reference(tree["optimizer_state"],
-                                                  device),
-            last_grads=(None if grads is None
-                        else params_from_reference(grads, device)),
+            server_params=tree["server_params"],
+            optimizer_state=tree["optimizer_state"],
+            last_grads=tree.get("last_grads"),
             loss=float(s["loss"]),
             rng_seed=int(s["rng_seed"]),
         )
@@ -113,8 +110,7 @@ class EdgeCheckpoint:
     def unpack(cls, data: bytes, *, base=None, device="cuda"
                ) -> "EdgeCheckpoint":
         return cls.from_tree(
-            serialization.unpack_pytree(data, base=base, device=device),
-            device)
+            serialization.unpack_pytree(data, base=base, device=device))
 
     def nbytes(self, codec: str = "raw", **kw) -> int:
         return len(self.pack(codec, **kw))

@@ -64,9 +64,12 @@ class MigrationReport:
 
 
 def max_abs_error(a: Params, b: Params) -> float:
-    """max |a - b| over matching leaves, in float32 (0.0 for no leaves)."""
-    errs = [(x.float() - y.to(x.device).float()).abs().max()
-            for x, y in zip(tree_leaves(a), tree_leaves(b)) if x.numel()]
+    """max |a - b| over matching leaves (tensors or numpy arrays), in
+    float32 (0.0 for no leaves)."""
+    pairs = [(torch.as_tensor(x), torch.as_tensor(y))
+             for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    errs = [(x.to(y.device).float() - y.float()).abs().max()
+            for x, y in pairs if x.numel()]
     return float(torch.stack(errs).max()) if errs else 0.0
 
 

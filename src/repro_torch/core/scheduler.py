@@ -222,19 +222,26 @@ class FedFlyScheduler:
         dev.edge_id = dst.edge_id
 
         if mode == "fedfly":
+            # the checkpoint ships the stage in the reference layout
+            grads = state.last_grads
             ckpt = EdgeCheckpoint(
                 client_id=dev.client_id, round_idx=round_idx,
                 epoch=state.epoch, batch_idx=batch_idx,
-                split_point=self.sp, server_params=state.srv_params,
-                optimizer_state=state.srv_opt, last_grads=state.last_grads,
+                split_point=self.sp,
+                server_params=params_to_reference(state.srv_params),
+                optimizer_state=params_to_reference(state.srv_opt),
+                last_grads=None if grads is None
+                else params_to_reference(grads),
                 loss=loss_val, rng_seed=self.seed)
             restored, report = self.migrator.migrate(
                 ckpt, move.src_edge, move.dst_edge,
                 route=self.migration_route)
             record.migrations.append(report)
             dst.clients[dev.client_id] = ClientServerState(
-                srv_params=restored.server_params,
-                srv_opt=restored.optimizer_state,
+                srv_params=params_from_reference(restored.server_params,
+                                                 self.device),
+                srv_opt=params_from_reference(restored.optimizer_state,
+                                              self.device),
                 epoch=restored.epoch, batch_idx=restored.batch_idx,
                 last_loss=restored.loss)
             return report.sim_total_s

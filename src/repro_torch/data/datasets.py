@@ -1,5 +1,6 @@
-"""Datasets (numpy only; a copy of ``repro.data.datasets``'s image task,
-producing arrays identical to it for the same seed).
+"""Datasets (numpy only; a copy of ``repro.data.datasets``'s image task
+and synthetic token stream, producing arrays identical to it for the
+same seed).
 
 CIFAR-10 is never downloaded; it is replaced by a
 *synthetic CIFAR-10-shaped* task: 10 classes, 3@32x32 images built from
@@ -11,7 +12,7 @@ experiments (paper Fig. 4) are meaningful. Sizes mirror CIFAR-10
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -65,3 +66,15 @@ def synthetic_cifar10(n_train: int = 50_000, n_test: int = 10_000,
 
     return make(n_train), make(n_test)
 
+
+def synthetic_tokens(batch: int, seq_len: int, vocab: int, seed: int = 0
+                     ) -> Dict[str, np.ndarray]:
+    """Markov-ish synthetic token stream (next-token predictable above
+    chance) for LLM train and serve steps."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, vocab, (batch, seq_len + 1), dtype=np.int64)
+    # introduce local structure: 50% of tokens repeat with +1 shift
+    rep = rng.random((batch, seq_len)) < 0.5
+    base[:, 1:][rep] = (base[:, :-1][rep] + 1) % vocab
+    return {"tokens": base[:, :-1].astype(np.int32),
+            "labels": base[:, 1:].astype(np.int32)}

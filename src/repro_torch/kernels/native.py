@@ -36,12 +36,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
-SOURCES = {"int8_codec": "int8_codec.cu", "fedavg_agg": "fedavg_agg.cu"}
+SOURCES = {"int8_codec": "int8_codec.cu", "fedavg_agg": "fedavg_agg.cu",
+           "flash_attention": "flash_attention.cu", "wkv6": "wkv6.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
 LAUNCHES: Dict[str, int] = {"quantize_packed": 0, "dequantize_packed": 0,
-                            "fedavg_agg": 0}
+                            "fedavg_agg": 0, "flash_attention": 0,
+                            "wkv6": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,7 +12,10 @@ so run it there with ``--noconftest``:
 Tolerances: the int8 codec is bit-exact (its bytes are the FFLY wire
 format); fedavg_agg rtol=1e-6/atol=1e-7 (float32, same summation order
 as the plain version; the bound allows for a differently rounded
-weight)."""
+weight); flash_attention fp32 atol = rtol = 1e-5 and bf16 2e-2 (the
+same function, summed in another order; bf16 outputs rounded apart);
+wkv6 atol = rtol = 1e-5 on y and the state (the 64-term read-out summed
+in another order)."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,9 +24,12 @@ import torch
 
 from repro_torch.kernels import native
 from repro_torch.kernels.fedavg_agg.fedavg_agg import fedavg_agg
+from repro_torch.kernels.flash_attention.flash_attention import \
+    flash_attention_fwd
 from repro_torch.kernels.int8_codec import ref
 from repro_torch.kernels.int8_codec.int8_codec import (dequantize_packed,
                                                        quantize_packed)
+from repro_torch.kernels.wkv6.wkv6 import wkv6
 
 
 @pytest.fixture
@@ -86,8 +92,86 @@ def test_fedavg_agg_kernel_matches_plain_version(cuda_device, E, N):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
+# B, H, KV, S, T, hd, causal, window, softcap, dtype
+FLASH_CASES = [
+    (2, 4, 4, 128, 128, 64, True, 0, 0.0, torch.float32),
+    (1, 16, 8, 200, 200, 128, True, 0, 0.0, torch.float32),
+    (2, 8, 2, 100, 100, 64, True, 0, 0.0, torch.float32),
+    (1, 4, 2, 150, 150, 64, True, 40, 50.0, torch.float32),
+    (1, 4, 2, 80, 112, 64, False, 0, 0.0, torch.float32),
+    (1, 2, 2, 120, 50, 64, False, 16, 50.0, torch.float32),
+    (1, 8, 8, 130, 130, 128, True, 0, 0.0, torch.bfloat16),
+    (2, 8, 4, 72, 72, 64, True, 24, 0.0, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,H,KV,S,T,hd,causal,window,cap,dt", FLASH_CASES,
+    ids=[f"B{c[0]}H{c[1]}KV{c[2]}S{c[3]}T{c[4]}hd{c[5]}"
+         f"{'c' if c[6] else 'nc'}w{c[7]}cap{c[8]:g}"
+         f"{str(c[9]).removeprefix('torch.')}" for c in FLASH_CASES])
+def test_flash_attention_kernel_matches_plain_version(
+        cuda_device, B, H, KV, S, T, hd, causal, window, cap, dt):
+    g = torch.Generator(device=cuda_device).manual_seed(S * 7 + T)
+    q = torch.randn((B, H, S, hd), generator=g, device=cuda_device).to(dt)
+    k = torch.randn((B, KV, T, hd), generator=g, device=cuda_device).to(dt)
+    v = torch.randn((B, KV, T, hd), generator=g, device=cuda_device).to(dt)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    before = native.LAUNCHES["flash_attention"]
+    got = flash_attention_fwd(q, k, v, **kw)
+    assert native.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_fwd(q, k, v, use_kernel=False, **kw)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    assert got.dtype == dt and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_other_head_dims(cuda_device):
+    q = torch.zeros((1, 2, 8, 32), device=cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,dt", [(1, 64, 2, torch.float32),
+                                      (2, 100, 3, torch.float32),
+                                      (1, 1, 1, torch.float32),
+                                      (2, 77, 4, torch.bfloat16)])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "state0"])
+def test_wkv6_kernel_matches_plain_version(cuda_device, B, T, H, dt,
+                                           carried):
+    g = torch.Generator(device=cuda_device).manual_seed(T * 13 + H)
+    shape = (B, T, H, 64)
+    r, k, v = (torch.randn(shape, generator=g, device=cuda_device) * 0.5
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(shape, generator=g,
+                                  device=cuda_device)) * 0.5 + 0.4
+    u = torch.randn((H, 64), generator=g, device=cuda_device) * 0.1
+    s0 = (torch.randn((B, H, 64, 64), generator=g, device=cuda_device)
+          if carried else None)
+    r, k, v, w = (t.to(dt) for t in (r, k, v, w))
+    before = native.LAUNCHES["wkv6"]
+    y, s = wkv6(r, k, v, w, u, s0)
+    assert native.LAUNCHES["wkv6"] == before + 1
+    y_p, s_p = wkv6(r, k, v, w, u, s0, use_kernel=False)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    assert y.dtype == dt and s.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(s, s_p, atol=1e-5 if dt == torch.float32
+                               else 1e-4, rtol=1e-5)
+
+
 def test_kernels_refuse_cpu_tensors_when_asked():
     with pytest.raises(ValueError):
         quantize_packed(torch.zeros(4), use_kernel=True)
     with pytest.raises(ValueError):
         fedavg_agg(torch.zeros(2, 3), [1.0, 1.0], use_kernel=True)
+    q = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, q, q, use_kernel=True)
+    x = torch.zeros((1, 4, 1, 64))
+    with pytest.raises(ValueError):
+        wkv6(x, x, x, x, torch.zeros(1, 64), use_kernel=True)

@@ -14,7 +14,7 @@ import torch
 from repro.core.checkpoint import EdgeCheckpoint as RefCheckpoint
 from repro.runtime import serialization as ref_ser
 from repro_torch.core.checkpoint import EdgeCheckpoint
-from repro_torch.models.vgg import params_from_reference
+from repro_torch.models.vgg import params_from_reference, params_to_reference
 from repro_torch.runtime import serialization as ser
 
 
@@ -156,9 +156,10 @@ def test_delta_fallback_and_vs_base_flags_match():
 
 
 def test_checkpoint_crosses_packages():
-    """A port checkpoint (torch layout on the device) packs to the same
-    bytes as the reference checkpoint of the same weights, and each
-    package restores the other's."""
+    """A port checkpoint of torch-layout weights, converted to the
+    reference layout as the scheduler ships them, packs to the same bytes
+    as the reference checkpoint of the same weights, and each package
+    restores the other's."""
     rng = np.random.default_rng(4)
     ref_params = [{"w": rng.standard_normal((3, 3, 64, 64)).astype(np.float32),
                    "b": rng.standard_normal(64).astype(np.float32)},
@@ -172,9 +173,12 @@ def test_checkpoint_crosses_packages():
     ref_ck = RefCheckpoint(server_params=ref_params,
                            optimizer_state=ref_opt, last_grads=ref_mu, **kw)
     port_ck = EdgeCheckpoint(
-        server_params=params_from_reference(ref_params, "cpu"),
-        optimizer_state=params_from_reference(ref_opt, "cpu"),
-        last_grads=params_from_reference(ref_mu, "cpu"), **kw)
+        server_params=params_to_reference(
+            params_from_reference(ref_params, "cpu")),
+        optimizer_state=params_to_reference(
+            params_from_reference(ref_opt, "cpu")),
+        last_grads=params_to_reference(params_from_reference(ref_mu, "cpu")),
+        **kw)
     base = {"server_params": ref_params}
     for codec in ("raw", "delta"):
         b = base if codec == "delta" else None
@@ -186,4 +190,5 @@ def test_checkpoint_crosses_packages():
         for x, y in zip(back.server_params, port_ck.server_params):
             torch.testing.assert_close(x["w"], y["w"], rtol=0,
                                        atol=0 if codec == "raw" else 0.05)
-        assert back.server_params[0]["w"].shape == (64, 64, 3, 3)
+        assert params_from_reference(back.server_params, "cpu")[0][
+            "w"].shape == (64, 64, 3, 3)
