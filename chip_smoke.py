@@ -19,7 +19,12 @@ Phases (any failure exits non-zero before the result line):
      events) beside the plain version, the one-call library equivalent
      (torch.mv for fedavg_agg, scaled_dot_product_attention for
      flash_attention; none for the codec and wkv6) and the bound, plus
-     the host-inclusive time of one wrapper call.
+     the host-inclusive time of one wrapper call. fedavg_agg_mix is held
+     to its plain version bit for bit at the fleet's flush shape (E 32
+     distinct update trees, N 188,810 VGG-5 parameters) and at E 1 /
+     N 1,000,003, E 4 / N 4,097 and a bf16 global; it is timed with its
+     inputs rotated over 6 copies (154 MB, more than the 50 MB L2), the
+     plain version and torch.addmv the same way.
   4. quickstart: 3 SP2 split steps at batch 100, a raw-codec migration,
      and a resume bit-identical to never moving; one split step on the
      card against the same step on the CPU.
@@ -41,11 +46,26 @@ Phases (any failure exits non-zero before the result line):
      with next-token logits bit-identical to not moving; the packed int8
      codec (delta with no base) records its bytes, ratio to raw,
      pack/unpack time and its kernel launches.
+  9. fleet flush: examples/fleet_sim.py's fleet with 8 cohorts (1000
+     clients on 8 edges, VGG-5 at SP2, batch 16, 2-9 batches per epoch,
+     SGD momentum 0.9, lr 0.01, 4 replicas per cohort: 32 distinct update
+     trees), counters reset first. 2 epochs; each trains every cohort on
+     the card, then folds all 1000 contributions in one FedAsync window
+     (alpha 0.6, hinge staleness a = 4/1000, b = 2000, staleness drawn
+     from 0..2500): flush_batch (exact int64 fold, the committed global),
+     the window's flush_coeffs through fedavg_mix_tree (the mix kernel),
+     1000 sequential submits, and the same fold on the CPU (bit-identical
+     to the card's); plus a SyncAggregator commit of the 32 (tree, summed
+     weight) pairs against fedavg (the fedavg_agg kernel). Every float
+     form is held to its stated bound of the exact one; fedavg_agg_mix
+     and fedavg_agg each launch once per epoch.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
+import itertools
 import json
 import os
 import statistics
@@ -271,6 +291,65 @@ def check_fedavg(E: int, N: int, timed: bool):
     return entry
 
 
+MIX_COPIES = 6                # input copies the mix timing rotates over
+
+
+def _rotating(fns):
+    """One callable that runs ``fns`` in turn, a different one per call:
+    timed over input copies that together exceed the L2, each launch
+    finds its inputs in device memory, as a flush window's updates are."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def check_fedavg_mix(E: int, N: int, timed: bool, gdtype: str = "float32"):
+    """The FedAsync mix kernel against its plain version (bit for bit)."""
+    from repro_torch.kernels.fedavg_agg import fedavg_agg as k
+    from repro_torch.kernels.fedavg_agg.ref import (fedavg_agg_mix_ref,
+                                                    mix_coeffs)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(E * 7919 + N + 1)
+    sets = []
+    for _ in range(MIX_COPIES if timed else 1):
+        stacked = torch.from_numpy(
+            rng.standard_normal((E, N)).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(
+            dev).to(getattr(torch, gdtype))
+        sets.append((g, stacked))
+    coeffs = rng.uniform(0.0, 1.0 / E, E)     # effective, sum below 1
+    g, stacked = sets[0]
+    got = k.fedavg_agg_mix(g, stacked, coeffs)
+    want = fedavg_agg_mix_ref(g, stacked, coeffs)
+    err = float((got.float() - want.float()).abs().max())
+    entry = {"name": "fedavg_agg_mix", "mode": f"E={E} {gdtype} global",
+             "n": N, "passed": bool(torch.equal(got, want)),
+             "tolerance": "bit-exact", "max_abs_err": err}
+    if not timed:
+        return entry
+    w_np, keep = mix_coeffs(coeffs)
+    w = torch.from_numpy(w_np).to(dev)
+    outs = [torch.empty(N, dtype=torch.float32, device=dev) for _ in sets]
+    nbytes = 4 * E * N + 4 * N + 4 * N + 4 * E
+    b = bound(nbytes, 2 * (E + 1) * N)
+    entry.update(
+        bytes=nbytes, flops=2 * (E + 1) * N, bound_ms=b[0], bound_by=b[1],
+        timing=(f"inputs rotated over {MIX_COPIES} copies "
+                f"({MIX_COPIES * nbytes} B, more than the 50 MB L2)"),
+        ms=device_ms(_rotating([
+            lambda g=g, s=s, o=o: k.launch_fedavg_agg_mix(g, s, w, keep, o)
+            for (g, s), o in zip(sets, outs)])),
+        ms_l2_warm=device_ms(
+            lambda: k.launch_fedavg_agg_mix(g, stacked, w, keep, outs[0])),
+        plain_ms=device_ms(_rotating([
+            lambda g=g, s=s: fedavg_agg_mix_ref(g, s, coeffs)
+            for g, s in sets]), reps=10, inner=6),
+        library_ms=device_ms(_rotating([
+            lambda g=g, s=s: torch.addmv(g, s.t(), w, beta=float(keep))
+            for g, s in sets])),
+        wrapper_call_ms=call_ms(lambda: k.fedavg_agg_mix(g, stacked, coeffs)))
+    return entry
+
+
 # B, H, KV, S, T, hd, causal, window, softcap, dtype; the first is the
 # main path's (one qwen3-0.6b prefill layer at batch 4, prompt 1024)
 FLASH_SHAPES = [
@@ -398,6 +477,10 @@ def phase_kernels():
         checks += check_codec(1000003, residual, timed=False)
     timed.append(check_fedavg(4, VGG5_PARAMS, timed=True))
     checks.append(check_fedavg(4, 1000003, timed=False))
+    timed.append(check_fedavg_mix(32, VGG5_PARAMS, timed=True))
+    checks.append(check_fedavg_mix(1, 1000003, timed=False))
+    checks.append(check_fedavg_mix(4, 4097, timed=False))
+    checks.append(check_fedavg_mix(4, 4097, timed=False, gdtype="bfloat16"))
     for i, shape in enumerate(FLASH_SHAPES):
         (timed if i == 0 else checks).append(check_flash(*shape))
     for i, shape in enumerate(WKV6_SHAPES):
@@ -803,12 +886,206 @@ def phase_serve_and_migrate(kernel_ms: dict, seconds: dict):
     return serve_launches
 
 
+FLEET_CLIENTS, FLEET_EDGES, FLEET_COHORTS, FLEET_EPOCHS = 1000, 8, 8, 2
+FLEET_MAX_STALENESS = 2500
+
+
+def _float_leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return [t for t in tree_leaves(tree) if t.is_floating_point()]
+
+
+def _max_abs(trees) -> float:
+    return max(float(t.abs().max()) for tree in trees
+               for t in _float_leaves(tree))
+
+
+def _max_diff(a, b) -> float:
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for x, y in zip(_float_leaves(a), _float_leaves(b)))
+
+
+def _fleet_window(fleet, epoch: int, rng):
+    """Every client's contribution of ``epoch``, in client order, with a
+    drawn staleness: (tree, weight, staleness). Clients of one replica
+    share its tree object."""
+    return [(fleet.contribution(c, epoch)[0], c.spec.num_samples,
+             int(rng.integers(0, FLEET_MAX_STALENESS + 1)))
+            for c in fleet.clients.values()]
+
+
+def _flush_epoch(fleet, agg, window):
+    """One FedAsync window through the exact fold (committed on ``agg``),
+    the mix kernel, sequential submits and the CPU fold; and the sync
+    FedAvg of its distinct trees through the int64 fold and the
+    fedavg_agg kernel. Returns the epoch's record."""
+    from repro_torch.core.fedavg import fedavg
+    from repro_torch.kernels.fedavg_agg.ops import (coeff_fold_tree,
+                                                    fedavg_mix_tree)
+    from repro_torch.sim import SyncAggregator
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def on_cpu(tree):
+        return tree_map(lambda t: t.cpu(), tree)
+
+    mixer, seq, cpu = (copy.deepcopy(agg) for _ in range(3))
+    cpu.params = on_cpu(cpu.params)
+    rec = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alphas = agg.flush_batch(window)
+    torch.cuda.synchronize()
+    rec["fold_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, grouped, keep = mixer.flush_coeffs([(id(t), w, s)
+                                           for t, w, s in window])
+    trees = {id(t): t for t, _, _ in window}
+    mixed = fedavg_mix_tree(mixer.params, [trees[k] for k in grouped],
+                            list(grouped.values()))
+    torch.cuda.synchronize()
+    rec["kernel_mix_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for t, w, st in window:
+        seq.submit(t, w, st)
+    torch.cuda.synchronize()
+    rec["submits_s"] = time.perf_counter() - t0
+
+    cpu_trees = {k: on_cpu(t) for k, t in trees.items()}
+    t0 = time.perf_counter()
+    cpu.flush_batch([(cpu_trees[id(t)], w, st) for t, w, st in window])
+    rec["cpu_fold_s"] = time.perf_counter() - t0
+    acc = coeff_fold_tree([trees[k] for k in grouped], list(grouped.values()))
+    acc_cpu = coeff_fold_tree([cpu_trees[k] for k in grouped],
+                              list(grouped.values()))
+    fold_bits = all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves([acc, agg.params]), tree_leaves([acc_cpu, cpu.params])))
+
+    E, n = len(grouped), len(window)
+    max_g, max_u = _max_abs([mixer.params]), _max_abs(trees.values())
+    sum_c = sum(abs(c) for c in grouped.values())
+    mix_bound = (E + 2) * 2.0 ** -23 * (abs(keep) * max_g + sum_c * max_u)
+    seq_bound = 3 * n * 2.0 ** -23 * max(max_g, max_u)
+
+    summed = {}
+    for t, w, _ in window:
+        summed[id(t)] = summed.get(id(t), 0.0) + w
+    sync = SyncAggregator(mixer.params)
+    for k, w in summed.items():
+        sync.submit(trees[k], w)
+    t0 = time.perf_counter()
+    sync_params = sync.commit()
+    torch.cuda.synchronize()
+    rec["sync_fold_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    averaged = fedavg([trees[k] for k in summed], list(summed.values()))
+    torch.cuda.synchronize()
+    rec["sync_kernel_s"] = time.perf_counter() - t0
+
+    rec.update(
+        updates=n, distinct_trees=E, keep=keep,
+        hinged=sum(1 for _, _, st in window if st > 2000),
+        alpha_sum=sum(alphas),
+        kernel_mix_vs_fold=_max_diff(mixed, agg.params),
+        kernel_mix_bound=mix_bound,
+        submits_vs_fold=_max_diff(seq.params, agg.params),
+        submits_bound=seq_bound,
+        card_vs_cpu_fold=_max_diff(agg.params, cpu.params),
+        card_fold_bit_identical_to_cpu=fold_bits,
+        sync_kernel_vs_fold=_max_diff(averaged, sync_params),
+        sync_kernel_bound=(E + 2) * 2.0 ** -23 * max_u,
+        finite=all(bool(torch.isfinite(t).all())
+                   for t in _float_leaves(agg.params)))
+    return rec
+
+
+def phase_fleet_flush():
+    """examples/fleet_sim.py's fleet (FLEET_SIM_COHORTS=8) on the card:
+    2 epochs, each flushed as one FedAsync window of all 1000 clients."""
+    from repro_torch.kernels import native
+    from repro_torch.models.vgg import VGG5
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.optim.schedules import constant
+    from repro_torch.sim import (AsyncAggregator, Fleet, hinge_staleness,
+                                 make_fleet_specs)
+
+    dev = torch.device("cuda")
+    specs = make_fleet_specs(FLEET_CLIENTS,
+                             [f"edge-{i}" for i in range(FLEET_EDGES)],
+                             batch_size=16, num_batches=2,
+                             cohorts=FLEET_COHORTS)
+    fleet = Fleet(VGG5(device=dev), sgd(momentum=0.9), specs,
+                  split_point=2, lr_schedule=constant(0.01), max_replicas=4,
+                  seed=0, device=dev)
+    table = fleet.cohort_tables("delta")
+    key0 = min(table)
+    agg = AsyncAggregator(fleet.global_params, alpha=0.6,
+                          staleness_fn=hinge_staleness(
+                              a=4.0 / FLEET_CLIENTS, b=2.0 * FLEET_CLIENTS))
+    rng = np.random.default_rng(0)
+    first = {}
+    for c in fleet.clients.values():
+        first.setdefault(c.spec.cohort_key, c)
+
+    torch.cuda.synchronize()
+    native.reset_launches()
+    epochs = []
+    for epoch in range(FLEET_EPOCHS):
+        t0 = time.perf_counter()
+        for c in first.values():
+            fleet.ensure_epoch(c, epoch)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        rec = _flush_epoch(fleet, agg, _fleet_window(fleet, epoch, rng))
+        fleet.set_global(agg.params)
+        losses = np.concatenate([c.losses[epoch]
+                                 for c in fleet.cohorts.values()])
+        rec.update(epoch=epoch, train_s=train_s,
+                   loss_mean=float(losses.mean()),
+                   losses_finite=bool(np.isfinite(losses).all()))
+        epochs.append(rec)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+
+    problems = []
+    for r in epochs:
+        for k in ("kernel_mix", "submits", "sync_kernel"):
+            diff = r[f"{k}_vs_fold"]
+            if not diff <= r[f"{k}_bound"]:
+                problems.append(f"epoch {r['epoch']}: {k} differs from the "
+                                f"exact fold by {diff} > {r[f'{k}_bound']}")
+        if not r["card_fold_bit_identical_to_cpu"]:
+            problems.append(f"epoch {r['epoch']}: card fold != CPU fold "
+                            f"({r['card_vs_cpu_fold']})")
+        if r["distinct_trees"] != FLEET_COHORTS * 4 or r["updates"] != \
+                FLEET_CLIENTS:
+            problems.append(f"epoch {r['epoch']}: {r['updates']} updates of "
+                            f"{r['distinct_trees']} trees")
+        if not (r["finite"] and r["losses_finite"]):
+            problems.append(f"epoch {r['epoch']}: non-finite values")
+    if launches["fedavg_agg_mix"] != FLEET_EPOCHS or \
+            launches["fedavg_agg"] != FLEET_EPOCHS:
+        problems.append(f"launches {launches}")
+    emit({"phase": "fleet_flush", "clients": FLEET_CLIENTS,
+          "cohorts": len(fleet.cohorts), "replicas_per_cohort": 4,
+          "tree_bytes": table[key0]["update"],
+          "first_cohort_table_delta": {"cohort": list(key0), **table[key0]},
+          "aggregator_version": agg.version, "epochs": epochs,
+          "launches": launches})
+    if problems:
+        raise SystemExit("fleet flush failed: " + "; ".join(problems))
+    return launches
+
+
 SOURCES = {"quantize_packed": ("src/repro_torch/kernels/csrc/int8_codec.cu",
                                "src/repro/kernels/int8_codec/int8_codec.py:87"),
            "dequantize_packed": ("src/repro_torch/kernels/csrc/int8_codec.cu",
                                  "src/repro/kernels/int8_codec/int8_codec.py:121"),
            "fedavg_agg": ("src/repro_torch/kernels/csrc/fedavg_agg.cu",
                           "src/repro/kernels/fedavg_agg/fedavg_agg.py:68"),
+           "fedavg_agg_mix": ("src/repro_torch/kernels/csrc/fedavg_agg.cu",
+                              "src/repro/kernels/fedavg_agg/fedavg_agg.py:92"),
            "flash_attention": (
                "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/flash_attention.py:75"),
@@ -829,10 +1106,12 @@ def main() -> int:
     del sched
     serve_launches = phase_serve_and_migrate(
         {c["name"]: c["ms"] for c in checked}, secs)
+    fleet_launches = clocked(secs, "9_fleet_flush", phase_fleet_flush)
     emit({"phase": "timing", "seconds": secs,
           "total_s": time.perf_counter() - t_start})
     launches.update({k: serve_launches[k] for k in ("flash_attention",
                                                     "wkv6")})
+    launches["fedavg_agg_mix"] = fleet_launches["fedavg_agg_mix"]
     kernels = []
     for c in checked:
         src, repl = SOURCES[c["name"]]
@@ -847,7 +1126,8 @@ def main() -> int:
             "library_us": (None if c["library_ms"] is None
                            else c["library_ms"] * 1e3),
             "bound_us": c["bound_ms"] * 1e3, "bytes": c["bytes"],
-            "wrapper_call_ms": c["wrapper_call_ms"]})
+            "wrapper_call_ms": c["wrapper_call_ms"],
+            **{k: c[k] for k in ("timing", "ms_l2_warm") if k in c}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,3 +1,4 @@
-"""Streaming weighted parameter average (FedAvg round barrier): CUDA
-kernel (``fedavg_agg.py``), plain version (``ref.py``) and the tree
-layer (``ops.py``)."""
+"""Streaming weighted parameter sums: the FedAvg round barrier and the
+FedAsync batched mix. CUDA kernels (``fedavg_agg.py``), plain versions
+(``ref.py``) and the tree layer with the exact int64 coefficient fold
+(``ops.py``)."""

@@ -42,8 +42,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
 LAUNCHES: Dict[str, int] = {"quantize_packed": 0, "dequantize_packed": 0,
-                            "fedavg_agg": 0, "flash_attention": 0,
-                            "wkv6": 0}
+                            "fedavg_agg": 0, "fedavg_agg_mix": 0,
+                            "flash_attention": 0, "wkv6": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,258 @@
+"""Aggregation policies for the fleet simulator (``repro.sim.async_agg``'s
+counterpart).
+
+``SyncAggregator``  — the paper's synchronous FedAvg: every online
+                      client contributes once per round, the round
+                      barrier commits a dataset-size-weighted average,
+                      version += 1.
+
+``AsyncAggregator`` — FedAsync-style (Xie et al. 2019) continuous
+                      mixing: each arriving update is folded into the
+                      global model with
+
+                        alpha_t = alpha * s(staleness)
+                        global  = (1 - alpha_t) * global + alpha_t * update
+
+                      where staleness = version_now - version_the_client
+                      _started_from, so mid-migration clients contribute
+                      late, down-weighted updates instead of stalling a
+                      round barrier.
+
+Both keep the global model as a tree of float32 tensors on the device
+its updates arrive on, and both are mergeable: the window or round fold
+runs in the exact int64 coefficient form of
+``repro_torch.kernels.fedavg_agg.ops`` (``coeff_fold_tree``), so a
+partial fold over any subset of a window composes bit-exactly with the
+root fold (``coeff_merge_trees`` + ``commit_acc``): flat and two-level
+aggregation commit the same bits for any cohort -> group partition.
+``AsyncAggregator.submit`` keeps the sequential per-update float path;
+``flush_batch`` is algebraically the same as a sequence of submits.
+The float kernel mix (``fedavg_mix_tree``) is the same algebra again,
+one launch per window, and is held against ``flush_batch`` by tolerance.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.kernels.fedavg_agg.ops import (coeff_finalize_tree,
+                                                coeff_fold_tree)
+from repro_torch.tree import tree_map
+
+Params = Any
+StalenessFn = Callable[[int], float]
+
+
+def sync_coeffs(weights: Sequence[float]) -> List[float]:
+    """Sequential-equivalent FedAvg coefficients: c_i = w_i / W with W a
+    *sequential* float64 sum in the given order — the one canonical
+    reduction both the flat and the two-level path use, so the partition
+    into group partials never changes a coefficient."""
+    total = 0.0
+    for w in weights:
+        total += float(w)
+    if total <= 0.0:
+        n = max(len(weights), 1)
+        return [1.0 / n] * len(weights)
+    return [float(w) / total for w in weights]
+
+
+def group_coeffs(keys: Sequence[Any], coeffs: Sequence[float]
+                 ) -> Dict[Any, float]:
+    """Sum per-update coefficients over updates sharing a key, first-seen
+    order. Keys identify the update *tree* (cohort replicas shared by
+    many clients), so the fold axis is the number of distinct trees, not
+    the number of clients."""
+    grouped: Dict[Any, float] = {}
+    for k, b in zip(keys, coeffs):
+        grouped[k] = grouped.get(k, 0.0) + b
+    return grouped
+
+
+def keep_coeff(grouped: Dict[Any, float]) -> float:
+    """1 - sum(grouped coefficients), summed sequentially in first-seen
+    order (dict insertion order is the window's arrival order; sorting
+    would change the float64 sum) — the ``keep`` both paths share."""
+    total = 0.0
+    for b in grouped.values():
+        total += b
+    return 1.0 - total
+
+
+# ---------------------------------------------------------------------------
+# staleness weighting functions (FedAsync §5)
+#
+# Staleness is counted in aggregator *versions* (one per applied update),
+# so a fleet of N clients advances ~N versions per round — scale hinge/
+# poly knobs accordingly (e.g. b = 2N tolerates two rounds of lag).
+# ---------------------------------------------------------------------------
+
+def constant_staleness() -> StalenessFn:
+    """s(tau) = 1 — plain async mixing, no staleness discount."""
+    return lambda tau: 1.0
+
+
+def poly_staleness(a: float = 0.5) -> StalenessFn:
+    """s(tau) = (1 + tau)^-a — smooth polynomial decay."""
+    return lambda tau: float((1.0 + max(tau, 0)) ** (-a))
+
+
+def hinge_staleness(a: float = 4.0, b: float = 2.0) -> StalenessFn:
+    """s(tau) = 1 if tau <= b else 1 / (1 + a (tau - b)) — tolerate small
+    staleness, discount sharply past the hinge."""
+    return lambda tau: 1.0 if tau <= b else float(1.0 / (1.0 + a * (tau - b)))
+
+
+def _f32_tree(tree: Params) -> Params:
+    """Float leaves as float32, others unchanged; devices unchanged."""
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                    tree)
+
+
+class SyncAggregator:
+    """Round-barrier FedAvg. The simulator deduplicates contributions by
+    cohort replica (clients sharing a replica share a tree) and hands in
+    (tree, summed_weight) pairs."""
+
+    def __init__(self, initial: Params):
+        self.params = _f32_tree(initial)
+        self.version = 0
+        self.skipped_rounds = 0
+        self._pending: List[Tuple[Params, float]] = []
+
+    def submit(self, tree: Params, weight: float, staleness: int = 0):
+        self._pending.append((tree, weight))
+
+    def commit(self) -> Params:
+        """The round barrier: weighted average of this round's updates
+        via the canonical coefficient fold (c_i = w_i / W, keep = 0). An
+        empty round (every client mid-migration, offline or sampled out)
+        carries the previous global forward, still bumps the version and
+        counts a skipped round — the path ``commit_acc`` takes for an
+        empty two-level fold, so flat and tree runs skip identically."""
+        coeffs = sync_coeffs([w for _, w in self._pending])
+        acc = coeff_fold_tree([t for t, _ in self._pending], coeffs)
+        return self.commit_acc(acc, len(self._pending))
+
+    def commit_acc(self, acc: Optional[Params], n_updates: int) -> Params:
+        """Commit a round from a finished (possibly merged) int64
+        accumulator — the root fold of the two-level path, and the tail
+        of the flat ``commit``. ``acc=None`` / ``n_updates=0`` is the
+        skipped-round carry-forward."""
+        self._pending = []
+        self.version += 1
+        if acc is None or n_updates == 0:
+            self.skipped_rounds += 1
+            return self.params
+        self.params = coeff_finalize_tree(self.params, 0.0, acc)
+        return self.params
+
+
+class AsyncAggregator:
+    """Staleness-weighted continuous aggregation; the version bumps on
+    every arriving update."""
+
+    def __init__(self, initial: Params, alpha: float = 0.6,
+                 staleness_fn: Optional[StalenessFn] = None):
+        self.params = _f32_tree(initial)
+        self.alpha = alpha
+        self.staleness_fn = staleness_fn or poly_staleness()
+        self.version = 0
+        self.skipped_flushes = 0
+        self.total_weight_applied = 0.0
+        self._weight_ema: Optional[float] = None
+
+    def _alpha_for(self, weight: float, staleness: int) -> float:
+        """Sequential mixing weight for one update. Advances the running
+        weight EMA, so order matters: feed updates in arrival order."""
+        if self._weight_ema is None:
+            self._weight_ema = float(weight)
+        else:
+            self._weight_ema += 0.05 * (float(weight) - self._weight_ema)
+        w_rel = float(weight) / max(self._weight_ema, 1e-12)
+        a = self.alpha * self.staleness_fn(staleness) * w_rel
+        return min(max(a, 0.0), 1.0)
+
+    def submit(self, tree: Params, weight: float = 1.0,
+               staleness: int = 0) -> float:
+        """Mix one update in (float32, elementwise); returns the effective
+        mixing weight. ``weight`` (dataset size) scales the mix relative
+        to the running mean of weights seen: a uniform fleet reduces to
+        plain FedAsync."""
+        a = self._alpha_for(weight, staleness)
+
+        def mix(g, u):
+            if g.is_floating_point():
+                return ((1.0 - a) * g + a * u.float()).to(g.dtype)
+            return g
+        self.params = tree_map(mix, self.params, _f32_tree(tree))
+        self.version += 1
+        self.total_weight_applied += a
+        return a
+
+    def flush_batch(self, updates: Sequence[Tuple[Params, float, int]]
+                    ) -> List[float]:
+        """Fold a whole flush window of updates at once.
+
+        ``updates`` is an arrival-ordered list of (tree, weight,
+        staleness). Sequential mixing telescopes to
+
+            g <- (1 - sum(b)) g + sum_i b_i u_i,
+            b_i = a_i * prod_{j>i} (1 - a_j),
+
+        folded here in the exact coefficient form. Updates that share a
+        tree object (cohort replicas shared by many clients) are grouped
+        by identity, so the fold axis is the number of distinct trees. A
+        window split into per-group partials (two-level mode, keyed by
+        (cohort, epoch, replica)) commits the same bits. Returns the
+        per-update sequential alphas.
+
+        An empty flush is a no-op (no version bump, no phantom commit),
+        counted in ``skipped_flushes``."""
+        if not updates:
+            self.skipped_flushes += 1
+            return []
+        keys = [id(tree) for tree, _, _ in updates]
+        tree_of = {}
+        for (tree, _, _), k in zip(updates, keys):
+            tree_of.setdefault(k, tree)
+        alphas, grouped, keep = self.flush_coeffs(
+            [(k, w, s) for k, (_, w, s) in zip(keys, updates)])
+        acc = coeff_fold_tree([_f32_tree(tree_of[k]) for k in grouped],
+                              list(grouped.values()))
+        return self.commit_acc(acc, keep, alphas)
+
+    def flush_coeffs(self, updates: Sequence[Tuple[Any, float, int]]
+                     ) -> Tuple[List[float], Dict[Any, float], float]:
+        """The coefficient half of ``flush_batch``: advance the weight
+        EMA over the arrival-ordered (key, weight, staleness) window and
+        return (per-update alphas, key -> folded coefficient in first-seen
+        order, keep). Two-level mode computes these once on the
+        coordinator, folds partials per group and commits the merge with
+        ``commit_acc``; ``fedavg_mix_tree`` takes the same coefficients
+        for the float kernel mix."""
+        alphas = [self._alpha_for(w, s) for _, w, s in updates]
+        coeffs = [0.0] * len(alphas)
+        tail = 1.0
+        for i in range(len(alphas) - 1, -1, -1):
+            coeffs[i] = alphas[i] * tail
+            tail *= 1.0 - alphas[i]
+        grouped = group_coeffs([k for k, _, _ in updates], coeffs)
+        return alphas, grouped, keep_coeff(grouped)
+
+    def commit_acc(self, acc: Optional[Params], keep: float,
+                   alphas: Sequence[float]) -> List[float]:
+        """Apply a finished (possibly merged) int64 accumulator — the
+        root fold of the two-level path. Empty folds skip without a
+        version bump."""
+        if acc is None or not alphas:
+            self.skipped_flushes += 1
+            return []
+        self.params = coeff_finalize_tree(self.params, keep, acc)
+        self.version += len(alphas)
+        self.total_weight_applied += sum(alphas)
+        return list(alphas)
+
+    def commit(self) -> Params:
+        """API symmetry with ``SyncAggregator``: async has no barrier, so
+        a commit is a pure carry-forward — no version bump."""
+        return self.params

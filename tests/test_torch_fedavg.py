@@ -5,6 +5,7 @@ Tolerance: rtol=1e-6 (float32: a sum of E products, each rounded, in an
 order that may differ from XLA's by a few ulp)."""
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -75,3 +76,34 @@ def test_fedavg_tree_matches_reference():
         for k in ("w", "b"):
             np.testing.assert_allclose(g[k].numpy(), np.asarray(r[k]),
                                        rtol=RTOL, atol=ATOL)
+
+
+def test_stacked_helpers_match_reference():
+    """fedavg_stacked (rtol 1e-6: float32 sums in XLA's order and in
+    torch's), broadcast_stacked and tree_weighted_delta (exact)."""
+    from repro.core.fedavg import broadcast_stacked as ref_broadcast
+    from repro.core.fedavg import fedavg_stacked as ref_stacked
+    from repro.core.fedavg import tree_weighted_delta as ref_delta
+    from repro_torch.core.fedavg import (broadcast_stacked, fedavg_stacked,
+                                         tree_weighted_delta)
+    trees = _vgg_like_trees(3, seed=7)
+    stacked = [{k: np.stack([t[i][k] for t in trees]) for k in ("w", "b")}
+               for i in range(4)]
+    port = [{k: torch.from_numpy(v) for k, v in p.items()} for p in stacked]
+    w = np.array([3.0, 1.0, 2.0], np.float32)
+    for g, r in zip(fedavg_stacked(port, w), ref_stacked(stacked,
+                                                          jnp.asarray(w))):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(g[k].numpy(), np.asarray(r[k]),
+                                       rtol=RTOL, atol=ATOL)
+    one = [{k: torch.from_numpy(v) for k, v in p.items()} for p in trees[0]]
+    for g, r in zip(broadcast_stacked(one, 4), ref_broadcast(trees[0], 4)):
+        for k in ("w", "b"):
+            assert g[k].shape == r[k].shape
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(r[k]))
+    other = [{k: torch.from_numpy(v) for k, v in p.items()} for p in trees[1]]
+    for g, r in zip(tree_weighted_delta(one, other),
+                    ref_delta(trees[0], trees[1])):
+        for k in ("w", "b"):
+            assert g[k].dtype == torch.float32
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(r[k]))

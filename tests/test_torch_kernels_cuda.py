@@ -12,7 +12,9 @@ so run it there with ``--noconftest``:
 Tolerances: the int8 codec is bit-exact (its bytes are the FFLY wire
 format); fedavg_agg rtol=1e-6/atol=1e-7 (float32, same summation order
 as the plain version; the bound allows for a differently rounded
-weight); flash_attention fp32 atol = rtol = 1e-5 and bf16 2e-2 (the
+weight); fedavg_agg_mix bit-exact (the plain version follows the
+kernel's order and roundings), and the int64 coefficient fold on the
+card bit-exact against the CPU's; flash_attention fp32 atol = rtol = 1e-5 and bf16 2e-2 (the
 same function, summed in another order; bf16 outputs rounded apart);
 wkv6 atol = rtol = 1e-5 on y and the state (the 64-term read-out summed
 in another order)."""
@@ -23,13 +25,18 @@ import pytest
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.fedavg_agg.fedavg_agg import fedavg_agg
+from repro_torch.kernels.fedavg_agg.fedavg_agg import (fedavg_agg,
+                                                       fedavg_agg_mix)
+from repro_torch.kernels.fedavg_agg.ops import (coeff_finalize_tree,
+                                                coeff_fold_tree,
+                                                fedavg_mix_tree)
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention_fwd
 from repro_torch.kernels.int8_codec import ref
 from repro_torch.kernels.int8_codec.int8_codec import (dequantize_packed,
                                                        quantize_packed)
 from repro_torch.kernels.wkv6.wkv6 import wkv6
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @pytest.fixture
@@ -90,6 +97,75 @@ def test_fedavg_agg_kernel_matches_plain_version(cuda_device, E, N):
     assert native.LAUNCHES["fedavg_agg"] == before + 1
     want = fedavg_agg(stacked, w, use_kernel=False)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,N,dt", [(32, 188810, torch.float32),
+                                    (1, 1000003, torch.float32),
+                                    (4, 4097, torch.float32),
+                                    (3, 5, torch.float32),
+                                    (8, 4096, torch.bfloat16)])
+def test_fedavg_agg_mix_kernel_bit_equal_to_plain_version(cuda_device, E, N,
+                                                          dt):
+    rng = np.random.default_rng(E * N + 1)
+    stacked = torch.from_numpy(
+        rng.standard_normal((E, N)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(
+        cuda_device).to(dt)
+    w = rng.uniform(0.0, 0.5 / E, E)
+    before = native.LAUNCHES["fedavg_agg_mix"]
+    got = fedavg_agg_mix(g, stacked, w)
+    assert native.LAUNCHES["fedavg_agg_mix"] == before + 1
+    want = fedavg_agg_mix(g, stacked, w, use_kernel=False)
+    assert got.dtype == dt
+    assert torch.equal(got, want)
+
+
+def _card_tree(rng, device):
+    return {"conv": [torch.from_numpy(rng.standard_normal((8, 3, 3, 3))
+                                      .astype(np.float32)).to(device),
+                     torch.from_numpy(rng.standard_normal(8).astype(
+                         np.float32)).to(device)],
+            "fc": torch.from_numpy(rng.standard_normal((10, 40)).astype(
+                np.float32)).to(device),
+            "step": torch.tensor(3, dtype=torch.int32, device=device)}
+
+
+def _on_cpu(tree):
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _same_leaves(card_tree, cpu_tree):
+    return all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_leaves(card_tree), tree_leaves(cpu_tree)))
+
+
+@pytest.mark.cuda
+def test_fedavg_mix_tree_one_launch_per_tree(cuda_device):
+    rng = np.random.default_rng(5)
+    g = _card_tree(rng, cuda_device)
+    ups = [_card_tree(rng, cuda_device) for _ in range(6)]
+    c = list(rng.uniform(0.0, 0.1, 6))
+    before = native.LAUNCHES["fedavg_agg_mix"]
+    got = fedavg_mix_tree(g, ups, c)
+    assert native.LAUNCHES["fedavg_agg_mix"] == before + 1
+    assert got["step"] is g["step"]
+    assert _same_leaves(got, fedavg_mix_tree(
+        _on_cpu(g), [_on_cpu(u) for u in ups], c))
+
+
+@pytest.mark.cuda
+def test_coeff_fold_on_the_card_equals_cpu_fold(cuda_device):
+    rng = np.random.default_rng(6)
+    g = _card_tree(rng, cuda_device)
+    ups = [_card_tree(rng, cuda_device) for _ in range(9)]
+    c = list(rng.uniform(0.0, 0.1, 9))
+    acc = coeff_fold_tree(ups, c)
+    acc_cpu = coeff_fold_tree([_on_cpu(u) for u in ups], c)
+    assert _same_leaves(acc, acc_cpu)
+    keep = 1.0 - sum(c)
+    assert _same_leaves(coeff_finalize_tree(g, keep, acc),
+                        coeff_finalize_tree(_on_cpu(g), keep, acc_cpu))
 
 
 # B, H, KV, S, T, hd, causal, window, softcap, dtype
@@ -169,6 +245,9 @@ def test_kernels_refuse_cpu_tensors_when_asked():
         quantize_packed(torch.zeros(4), use_kernel=True)
     with pytest.raises(ValueError):
         fedavg_agg(torch.zeros(2, 3), [1.0, 1.0], use_kernel=True)
+    with pytest.raises(ValueError):
+        fedavg_agg_mix(torch.zeros(3), torch.zeros(2, 3), [0.1, 0.1],
+                       use_kernel=True)
     q = torch.zeros((1, 2, 8, 64))
     with pytest.raises(ValueError):
         flash_attention_fwd(q, q, q, use_kernel=True)

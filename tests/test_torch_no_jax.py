@@ -26,6 +26,9 @@ def _port_modules():
 def test_port_imports_leave_jax_and_repro_out():
     mods = _port_modules()
     assert "repro_torch.core.scheduler" in mods
+    assert {"repro_torch.sim", "repro_torch.sim.fleet",
+            "repro_torch.sim.async_agg", "repro_torch.sim.agg_tree"} <= \
+        set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
