@@ -7,18 +7,23 @@ NVIDIA H100.
 Phases (any failure exits non-zero before the result line):
   1. environment: a CUDA card of compute capability 9.0; versions, the
      card's name and power limit; the GPU parity mode.
-  2. build: nvcc compiles every kernel of the port from the checkout.
+  2. build: nvcc compiles every kernel of the port from the checkout;
+     ptxas's registers and spills per kernel; cuobjdump's SASS of the
+     flash libraries must show the bf16 kernel issuing tensor-core
+     (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions.
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes and at unaligned ones: the int8 codec bit-equal
      to the plain version and to the numpy oracle, fedavg_agg within
-     rtol=1e-6/atol=1e-7, flash_attention within 1e-5 (fp32) / 2e-2
-     (bf16) at qwen3-0.6b's prefill shapes (S 1024 and 8192, the length
-     the reference sends to its blocked scan), an unaligned non-causal
-     window + softcap case and bf16, wkv6 within 1e-5 at rwkv6-1.6b's
-     (B 4, T 1024 and 1000, H 32); device times (CUDA-graph replay, CUDA
-     events) beside the plain version, the one-call library equivalent
-     (torch.mv for fedavg_agg, scaled_dot_product_attention for
-     flash_attention; none for the codec and wkv6) and the bound, plus
+     rtol=1e-6/atol=1e-7, flash_attention within 1e-5 (fp32, the SIMT
+     kernel) at qwen3-0.6b's prefill shapes (S 1024 and 8192, the length
+     the reference sends to its blocked scan) and an unaligned non-causal
+     window + softcap case, and within 2e-2 (bf16, the tensor-core
+     kernel, timed as flash_attention_bf16) at the qwen3 shape and a
+     causal hd 64 window 256 + softcap 50 case; wkv6 within 1e-5 at
+     rwkv6-1.6b's (B 4, T 1024 and 1000, H 32); device times (CUDA-graph
+     replay, CUDA events) beside the plain version, the one-call library
+     equivalent (torch.mv for fedavg_agg, scaled_dot_product_attention
+     for flash_attention; none for the codec and wkv6) and the bound, plus
      the host-inclusive time of one wrapper call. fedavg_agg_mix is held
      to its plain version bit for bit at the fleet's flush shape (E 32
      distinct update trees, N 188,810 VGG-5 parameters) and at E 1 /
@@ -41,6 +46,12 @@ Phases (any failure exits non-zero before the result line):
      wkv6 24), then around the decode (none); the same prefill with every
      kernel's plain version: last-token logits within atol = rtol = 1e-3
      and the same argmax.
+  7b. bf16 prefill: qwen3-0.6b at its published widths with bf16 weights
+     and compute (batch 4, prompt 1024, random weights from seed 0),
+     counters reset just before and read after: flash_attention_bf16 28,
+     flash_attention 0; wall time, tokens/s, the kernel's share, a
+     profiled prefill; the same prefill through the plain versions: the
+     logits and every cache entry within 5e-2 of their max|x|.
   8. session migration: each model's decode session, taken after 8 of
      the 15 decode steps, moves edge-A -> edge-B: the raw codec resumes
      with next-token logits bit-identical to not moving; the packed int8
@@ -68,6 +79,7 @@ import copy
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -171,13 +183,31 @@ def phase_environment():
     return smi
 
 
+# tensor-core product, cp.async copy, ldmatrix, fp32 fused multiply-add
+SASS_OPS = ("HMMA", "LDGSTS", "LDSM", "FFMA")
+
+
 def phase_build():
     from repro_torch.kernels import native
     secs = native.build_all()
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in native.BUILD_LOG.items()}
-    emit({"phase": "build", "seconds": round(secs, 3), "ptxas": ptxas})
+    cuobjdump = Path(native.nvcc()).parent / "cuobjdump"
+    sass = {}
+    for name in ("flash_attention", "flash_attention_mma"):
+        text = subprocess.run(
+            [str(cuobjdump), "-sass", str(native.library_path(name))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        sass[name] = {op: len(re.findall(rf"\b{op}\b", text))
+                      for op in SASS_OPS}
+    emit({"phase": "build", "seconds": round(secs, 3), "ptxas": ptxas,
+          "sass_instructions": sass})
+    missing = [op for op in ("HMMA", "LDGSTS", "LDSM")
+               if not sass["flash_attention_mma"][op]]
+    if missing:
+        raise SystemExit(f"build: the bf16 flash kernel's SASS has no "
+                         f"{missing} instructions")
 
 
 def _codec_inputs(n: int, seed: int):
@@ -351,12 +381,14 @@ def check_fedavg_mix(E: int, N: int, timed: bool, gdtype: str = "float32"):
 
 
 # B, H, KV, S, T, hd, causal, window, softcap, dtype; the first is the
-# main path's (one qwen3-0.6b prefill layer at batch 4, prompt 1024)
+# main path's (one qwen3-0.6b prefill layer at batch 4, prompt 1024), the
+# first bf16 one the bf16 prefill's (phase 7b)
 FLASH_SHAPES = [
     (4, 16, 8, 1024, 1024, 128, True, 0, 0.0, "float32"),
     (1, 16, 8, 8192, 8192, 128, True, 0, 0.0, "float32"),
     (2, 8, 4, 1000, 777, 64, False, 256, 50.0, "float32"),
     (4, 16, 8, 1024, 1024, 128, True, 0, 0.0, "bfloat16"),
+    (2, 8, 4, 1000, 1000, 64, True, 256, 50.0, "bfloat16"),
 ]
 # B, T, H: one rwkv6-1.6b prefill layer at batch 4, prompt 1024; unaligned
 WKV6_SHAPES = [(4, 1024, 32), (4, 1000, 32)]
@@ -416,7 +448,9 @@ def check_flash(B, H, KV, S, T, hd, causal, window, softcap, dtype):
               else FP32_FLOPS_PER_S)
     big = S >= 4096
     out = torch.empty_like(q)
-    entry = {"name": "flash_attention", "mode": (
+    name = ("flash_attention_bf16" if dt == torch.bfloat16
+            else "flash_attention")
+    entry = {"name": name, "mode": (
         f"B{B} H{H} KV{KV} S{S} T{T} hd{hd} {dtype} "
         f"{'causal' if causal else 'non-causal'} window {window} "
         f"softcap {softcap:g}"), "n": B * H * S * hd, "passed": ok,
@@ -482,7 +516,8 @@ def phase_kernels():
     checks.append(check_fedavg_mix(4, 4097, timed=False))
     checks.append(check_fedavg_mix(4, 4097, timed=False, gdtype="bfloat16"))
     for i, shape in enumerate(FLASH_SHAPES):
-        (timed if i == 0 else checks).append(check_flash(*shape))
+        keep = i == 0 or shape[-1] == "bfloat16"
+        (timed if keep else checks).append(check_flash(*shape))
     for i, shape in enumerate(WKV6_SHAPES):
         (timed if i == 0 else checks).append(check_wkv6(*shape))
     for c in timed + checks:
@@ -768,6 +803,7 @@ def phase_serve(arch: str, kernel_ms: dict):
 
     name = "flash_attention" if not cfg.rwkv else "wkv6"
     want = {"flash_attention": 0 if cfg.rwkv else cfg.num_layers,
+            "flash_attention_bf16": 0,
             "wkv6": cfg.num_layers if cfg.rwkv else 0}
     problems = []
     for k, n in want.items():
@@ -884,6 +920,82 @@ def phase_serve_and_migrate(kernel_ms: dict, seconds: dict):
         del model, snapshot
         torch.cuda.empty_cache()
     return serve_launches
+
+
+PREFILL_BF16_TOL = 5e-2         # kernel vs plain, of each tensor's max|x|
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def phase_prefill_bf16(kernel_ms: dict):
+    """One qwen3-0.6b prefill at its published widths with bf16 weights
+    and compute: every layer's attention on the bf16 tensor-core kernel.
+    Against the same prefill through the plain versions, each tensor is
+    held to PREFILL_BF16_TOL of its max|x|: bf16 rounds every op's output
+    (2^-8 relative), the kernel rounds P and its output where the plain
+    version rounds only its output, and 28 layers carry the difference; a
+    wrong kernel moves the logits by their own scale."""
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.kernels import native
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model, get_config
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-0.6b").replace(param_dtype="bfloat16",
+                                           compute_dtype="bfloat16")
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    batch = {"tokens": torch.from_numpy(synthetic_tokens(
+        B, S, cfg.vocab_size, 0)["tokens"]).to(dev)}
+    prefill = steps.make_prefill_step(model)
+    prefill({"tokens": batch["tokens"][:, :64]})      # warm-up
+
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    logits, aux = prefill(batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    _, dev_ms, rows = profile_device(lambda: prefill(batch))
+
+    model.use_kernel = False
+    plain_logits, plain_aux = prefill(batch)
+    model.use_kernel = None
+    errs = {"logits": _rel_err(logits, plain_logits),
+            **{k: _rel_err(aux[k], plain_aux[k]) for k in plain_aux}}
+    del aux, plain_aux
+
+    name = "flash_attention_bf16"
+    problems = []
+    if launches[name] != cfg.num_layers or launches["flash_attention"]:
+        problems.append(f"launches {launches}, expected {name} "
+                        f"{cfg.num_layers} and flash_attention 0")
+    if (logits.shape != (B, 1, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        problems.append(f"logits {tuple(logits.shape)}, finite "
+                        f"{bool(torch.isfinite(logits).all())}")
+    if max(errs.values()) > PREFILL_BF16_TOL:
+        problems.append(f"kernel vs plain relative error {errs}")
+    emit({"phase": "prefill_bf16", "arch": cfg.name, "dtype": "bfloat16",
+          "params": sum(p.numel() for p in model.parameters()),
+          "batch": B, "prompt": S, "prefill_s": prefill_s,
+          "prefill_tok_per_s": B * S / prefill_s, "launches": launches,
+          "kernel_ms": kernel_ms[name],
+          "kernel_share_of_prefill": (
+              launches[name] * kernel_ms[name] / 1e3 / prefill_s),
+          "prefill_device_kernel_ms": dev_ms,
+          "prefill_device_kernels": sum(r[2] for r in rows),
+          "prefill_device_busy_share": dev_ms / 1e3 / prefill_s,
+          "prefill_top_device": _top(rows, 6),
+          "kernel_vs_plain_rel_err": errs, "tolerance": PREFILL_BF16_TOL})
+    if problems:
+        raise SystemExit("bf16 prefill failed: " + "; ".join(problems))
+    return launches
 
 
 FLEET_CLIENTS, FLEET_EDGES, FLEET_COHORTS, FLEET_EPOCHS = 1000, 8, 8, 2
@@ -1089,6 +1201,9 @@ SOURCES = {"quantize_packed": ("src/repro_torch/kernels/csrc/int8_codec.cu",
            "flash_attention": (
                "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/flash_attention.py:75"),
+           "flash_attention_bf16": (
+               "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+               "src/repro/kernels/flash_attention/flash_attention.py:75"),
            "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
                     "src/repro/kernels/wkv6/wkv6.py:55")}
 
@@ -1104,14 +1219,19 @@ def main() -> int:
                                           phase_main_path)
     clocked(secs, "6_profile", phase_profile, sched, round_wall_s)
     del sched
-    serve_launches = phase_serve_and_migrate(
-        {c["name"]: c["ms"] for c in checked}, secs)
+    kernel_ms: dict = {}            # each kernel's main-shape time
+    for c in checked:
+        kernel_ms.setdefault(c["name"], c["ms"])
+    serve_launches = phase_serve_and_migrate(kernel_ms, secs)
+    bf16_launches = clocked(secs, "7b_prefill_bf16", phase_prefill_bf16,
+                            kernel_ms)
     fleet_launches = clocked(secs, "9_fleet_flush", phase_fleet_flush)
     emit({"phase": "timing", "seconds": secs,
           "total_s": time.perf_counter() - t_start})
     launches.update({k: serve_launches[k] for k in ("flash_attention",
                                                     "wkv6")})
     launches["fedavg_agg_mix"] = fleet_launches["fedavg_agg_mix"]
+    launches["flash_attention_bf16"] = bf16_launches["flash_attention_bf16"]
     kernels = []
     for c in checked:
         src, repl = SOURCES[c["name"]]

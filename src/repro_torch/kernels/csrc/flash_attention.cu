@@ -1,17 +1,17 @@
-// Causal / sliding-window GQA attention forward with an online softmax:
-// every prefill layer of the dense models (qwen3-0.6b: one launch per
-// layer) goes through this kernel.
+// Causal / sliding-window GQA attention forward with an online softmax,
+// fp32: every prefill layer of the dense models served in fp32 (qwen3-0.6b:
+// one launch per layer) goes through this kernel. The bf16 mode has its
+// own tensor-core kernel, flash_attention_mma.cu.
 //
-// Replaces the Pallas TPU kernel of
+// Replaces the fp32 side of the Pallas TPU kernel of
 // src/repro/kernels/flash_attention/flash_attention.py:
 // flash_attention_fwd (_flash_kernel, _call).
 //
 // Function: out[b,h,s] = softmax_t(mask(softcap(q[b,h,s]·k[b,h/rep,t] /
 // sqrt(hd)))) @ v[b,h/rep], the logits of masked (real) keys set to
 // -2.3819763e38 as in the reference, keys at or past the true T removed
-// outright in every mode. Inputs fp32 or bf16; every product, the softmax
-// and the accumulator are fp32 (no TF32, no tensor cores), the output is
-// rounded to the input type.
+// outright in every mode. Every product, the softmax and the accumulator
+// are fp32 (no TF32, no tensor cores).
 //
 // What bounds it on Hopper: operations. A (64 x 64) tile does 2·hd
 // flops per logit against hd·4 bytes staged once per 64 queries, far
@@ -32,7 +32,6 @@
 // - no state crosses blocks, and S and T need not be multiples of 64.
 // The shared footprint (~113 KB at hd = 128) is above the 48 KB default,
 // so the launcher raises the kernel's dynamic shared-memory limit.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -46,16 +45,9 @@ constexpr int kCols = kBK / 16;  // logit columns per thread (16 col groups)
 constexpr float kBigNeg = -2.3819763e38f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 template <int HD>
@@ -245,27 +237,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // q: (B, H, S, hd); k, v: (B, KV, T, hd); out: (B, H, S, hd); all
-// contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1); hd 64 or 128;
-// H a multiple of KV. Returns the launch's cudaError_t (1 = invalid
-// value for an unsupported hd).
+// contiguous fp32; hd 64 or 128; H a multiple of KV. Returns the launch's
+// cudaError_t (1 = invalid value for an unsupported hd).
 int ffly_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* out, int B, int H, int KV, int S,
-                             int T_len, int hd, int is_bf16, int causal,
-                             int window, float softcap, void* stream) {
+                             int T_len, int hd, int causal, int window,
+                             float softcap, void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, B, H, KV, S,
-                                               T_len, causal, window,
-                                               softcap, st)
-                   : launch<float, 64>(q, k, v, out, B, H, KV, S, T_len,
-                                       causal, window, softcap, st);
+    return launch<float, 64>(q, k, v, out, B, H, KV, S, T_len, causal,
+                             window, softcap, st);
   if (hd == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, out, B, H, KV, S,
-                                                T_len, causal, window,
-                                                softcap, st)
-                   : launch<float, 128>(q, k, v, out, B, H, KV, S, T_len,
-                                        causal, window, softcap, st);
+    return launch<float, 128>(q, k, v, out, B, H, KV, S, T_len, causal,
+                              window, softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

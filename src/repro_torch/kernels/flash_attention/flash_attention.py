@@ -1,12 +1,16 @@
-"""Wrapper of the flash-attention forward kernel
-(``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention forward kernels: float32 on the SIMT
+kernel ``csrc/flash_attention.cu`` (launches counted as
+``flash_attention``), bfloat16 on the tensor-core kernel
+``csrc/flash_attention_mma.cu`` (counted as ``flash_attention_bf16``).
 
 ``flash_attention_fwd(q, k, v, *, causal, window, softcap)`` takes the
 reference kernel's layout — q (B, H, S, hd), k/v (B, KV, T, hd) — in
 float32 or bfloat16, with hd 64 or 128 on the card, and returns
 (B, H, S, hd) in q's dtype. S and T need not be multiples of any block,
 keys past T are never attended in any mode, and query head h reads KV
-head h // (H // KV).
+head h // (H // KV). The bf16 kernel copies 16 bytes a thread, so an
+input whose first element is not 16-byte aligned (a view at an odd
+offset) is copied first.
 
 Dispatch as in ``int8_codec``: ``use_kernel=None`` launches the kernel
 for a CUDA tensor and runs the plain version (``ref.py``) for a CPU
@@ -25,11 +29,16 @@ from repro_torch.kernels import native
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (64, 128)
-_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-         _P]
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+# dtype -> (library, C function, launch counter)
+_KERNELS = {torch.float32: ("flash_attention", "ffly_flash_attention_fwd",
+                            "flash_attention"),
+            torch.bfloat16: ("flash_attention_mma",
+                             "ffly_flash_attention_bf16_fwd",
+                             "flash_attention_bf16")}
+_DTYPES = tuple(_KERNELS)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,26 +63,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA "
                          "device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            softcap=softcap)
     return out
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its first element sits on a 16-byte boundary, else
+    a copy of it (fresh storage is aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, out: torch.Tensor, *,
                            causal: bool, window: int, softcap: float) -> None:
-    """Launch the kernel on checked contiguous buffers on the current
-    stream."""
+    """Launch the kernel of q's dtype on checked contiguous, 16-byte
+    aligned buffers on the current stream."""
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
-    fn = native.function("flash_attention", "ffly_flash_attention_fwd",
-                         _ARGS)
+    lib, cfn, name = _KERNELS[q.dtype]
+    fn = native.function(lib, cfn, _ARGS)
     with torch.cuda.device(q.device):
         rc = fn(native.ptr(q), native.ptr(k), native.ptr(v),
-                native.ptr(out), B, H, KV, S, T, hd,
-                int(q.dtype == torch.bfloat16), int(bool(causal)),
+                native.ptr(out), B, H, KV, S, T, hd, int(bool(causal)),
                 int(window), float(softcap), native.stream(q))
-    native.check(rc, "flash_attention")
-    native.count_launch("flash_attention")
+    native.check(rc, name)
+    native.count_launch(name)

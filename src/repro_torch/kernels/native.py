@@ -37,13 +37,16 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
 SOURCES = {"int8_codec": "int8_codec.cu", "fedavg_agg": "fedavg_agg.cu",
-           "flash_attention": "flash_attention.cu", "wkv6": "wkv6.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_mma": "flash_attention_mma.cu",
+           "wkv6": "wkv6.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
 LAUNCHES: Dict[str, int] = {"quantize_packed": 0, "dequantize_packed": 0,
                             "fedavg_agg": 0, "fedavg_agg_mix": 0,
-                            "flash_attention": 0, "wkv6": 0}
+                            "flash_attention": 0,
+                            "flash_attention_bf16": 0, "wkv6": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -82,7 +85,8 @@ def nvcc() -> str:
                        "are built from source at first use")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of kernel source ``name`` is (or will be) built."""
     src = (CSRC / SOURCES[name]).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
@@ -93,7 +97,7 @@ def build_all() -> float:
     """Compile every kernel library that is not built yet, in parallel.
     Returns the seconds spent; raises with nvcc's output on failure."""
     with _lock:
-        todo = [n for n in SOURCES if not _target(n).is_file()]
+        todo = [n for n in SOURCES if not library_path(n).is_file()]
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,7 +105,7 @@ def build_all() -> float:
         t0 = time.perf_counter()
         procs = {}
         for n in todo:
-            tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
+            tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
             cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
             procs[n] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -113,7 +117,7 @@ def build_all() -> float:
             if p.returncode != 0:
                 failed.append(f"--- {n} (nvcc exit {p.returncode})\n{out}")
                 continue
-            os.replace(tmp, _target(n))
+            os.replace(tmp, library_path(n))
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         return time.perf_counter() - t0
@@ -127,7 +131,7 @@ def library(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+                lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 

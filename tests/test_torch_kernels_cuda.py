@@ -14,8 +14,11 @@ format); fedavg_agg rtol=1e-6/atol=1e-7 (float32, same summation order
 as the plain version; the bound allows for a differently rounded
 weight); fedavg_agg_mix bit-exact (the plain version follows the
 kernel's order and roundings), and the int64 coefficient fold on the
-card bit-exact against the CPU's; flash_attention fp32 atol = rtol = 1e-5 and bf16 2e-2 (the
-same function, summed in another order; bf16 outputs rounded apart);
+card bit-exact against the CPU's; flash_attention fp32 atol = rtol = 1e-5 (the
+SIMT kernel: the same function, summed in another order) and bf16 2e-2
+(the tensor-core kernel: P rounded to bf16 before P·V, outputs rounded
+to bf16 apart; tests/test_torch_flash_bf16.py shows on the CPU that
+these roundings fit);
 wkv6 atol = rtol = 1e-5 on y and the state (the 64-term read-out summed
 in another order)."""
 from __future__ import annotations
@@ -178,6 +181,17 @@ FLASH_CASES = [
     (1, 2, 2, 120, 50, 64, False, 16, 50.0, torch.float32),
     (1, 8, 8, 130, 130, 128, True, 0, 0.0, torch.bfloat16),
     (2, 8, 4, 72, 72, 64, True, 24, 0.0, torch.bfloat16),
+    # the bf16 tensor-core kernel: the qwen3-0.6b prefill layer
+    (4, 16, 8, 1024, 1024, 128, True, 0, 0.0, torch.bfloat16),
+    # S = T = 1000 at hd 64, rep 4
+    (1, 16, 4, 1000, 1000, 64, True, 0, 0.0, torch.bfloat16),
+    # window 256 with softcap 50
+    (2, 8, 4, 700, 700, 128, True, 256, 50.0, torch.bfloat16),
+    # non-causal, T < S (late rows of the window see no key) and T > S
+    (1, 4, 2, 300, 100, 64, False, 64, 0.0, torch.bfloat16),
+    (1, 4, 2, 80, 333, 128, False, 0, 0.0, torch.bfloat16),
+    # one query row
+    (1, 8, 2, 1, 1, 128, True, 0, 0.0, torch.bfloat16),
 ]
 
 
@@ -194,14 +208,36 @@ def test_flash_attention_kernel_matches_plain_version(
     k = torch.randn((B, KV, T, hd), generator=g, device=cuda_device).to(dt)
     v = torch.randn((B, KV, T, hd), generator=g, device=cuda_device).to(dt)
     kw = dict(causal=causal, window=window, softcap=cap)
-    before = native.LAUNCHES["flash_attention"]
+    name = ("flash_attention_bf16" if dt == torch.bfloat16
+            else "flash_attention")
+    before = dict(native.LAUNCHES)
     got = flash_attention_fwd(q, k, v, **kw)
-    assert native.LAUNCHES["flash_attention"] == before + 1
+    assert native.LAUNCHES[name] == before[name] + 1
+    assert sum(native.LAUNCHES.values()) == sum(before.values()) + 1
     want = flash_attention_fwd(q, k, v, use_kernel=False, **kw)
     tol = 2e-2 if dt == torch.bfloat16 else 1e-5
     assert got.dtype == dt and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_attention_kernel_takes_misaligned_views(cuda_device, dt):
+    """Contiguous views at an odd element offset (not 16-byte aligned)
+    give the same result as aligned copies of the same values."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    shapes = [(1, 4, 100, 64), (1, 2, 100, 64), (1, 2, 100, 64)]
+    views = []
+    for shape in shapes:
+        n = int(np.prod(shape))
+        flat = torch.randn(n + 1, generator=g, device=cuda_device).to(dt)
+        views.append(flat[1:].view(shape))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in views)
+    got = flash_attention_fwd(*views, window=32)
+    want = flash_attention_fwd(*(t.clone() for t in views), window=32)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
